@@ -5,15 +5,19 @@ Run from the root of a checkout:  python3 chip_smoke.py
 1. prints the card's name and power limit (nvidia-smi);
 2. builds the port's CUDA kernels from ``src/repro_torch/kernels/*/csrc``
    into ``build/kernels/`` and prints the build time;
-3. holds the conv3d kernel against its plain PyTorch version at the four
-   generator-layer geometries of the full ``calo3dgan.config()`` at bucket
-   128, plus the discriminator's stride-2 Ci=1 input layer, in f32 and
-   bf16 with TF32 off, and times kernel, plain version and one cuDNN call;
-4. serves full-width requests through ``SimulateEngine`` on the card and
-   checks the results (exact event counts, finite non-negative showers,
-   4 conv kernel launches per bucket step, packing invariance, agreement
-   with the plain-version generator on the CPU), printing events/s and
-   latency;
+3. holds the conv3d kernel, through the public entry points
+   ``conv3d_fwd`` / ``conv3d_transpose_fwd``, against their plain PyTorch
+   versions at the four generator-layer geometries of the full
+   ``calo3dgan.config()`` at bucket 128, plus the discriminator's stride-2
+   Ci=1 input layer, in f32 and bf16 with TF32 off, and times kernel,
+   plain version and one cuDNN call;
+4. serves a window of full-width requests through ``SimulateEngine`` on
+   the card (the main path: conv launch count reset just before, read just
+   after) and checks the results (exact event counts, finite non-negative
+   showers, 4 conv kernel launches per bucket step, packing invariance,
+   agreement with the plain-version generator on the CPU); serves the same
+   window twice more for the spread of events/s, then an open-loop run of
+   Poisson arrivals for request latency;
 5. profiles one bucket-128 step (device time by kernel, busy share);
 6. prints the kernels' JSON line, the card line again, and as its last
    line ``{"ok": true, "device": {...}}``.
@@ -24,6 +28,7 @@ line.  It needs a CUDA card and the repository's ``src/`` beside it.
 from __future__ import annotations
 
 import json
+import math
 import os
 import subprocess
 import sys
@@ -37,6 +42,11 @@ BATCH = 128                       # the largest bucket: the layer shapes
 HBM_BYTES_PER_S = 3.35e12         # H100 SXM data sheet
 PEAK_OPS_PER_S = {"float32": 67e12, "bfloat16": 989e12, "float16": 989e12}
 TOL = {"float32": (1e-4, 1e-4), "bfloat16": (1e-2, 1e-2)}   # (atol, rtol)
+CHECK_SIZES = (1, 7, 45, 130, 3, 64, 19)   # odd sizes; 130 spans two steps
+WINDOW_REQUESTS = 240             # closed-batch window (incl. CHECK_SIZES)
+WINDOW_REPEATS = 3                # the main run plus two more, for spread
+OPEN_LOOP_REQUESTS = 200
+OPEN_LOOP_LOAD = 0.6              # offered load, share of measured events/s
 
 
 def check(cond, msg):
@@ -72,6 +82,12 @@ def cuda_ms(fn, min_total_ms=50.0, max_reps=200):
     return total / reps
 
 
+def nearest_rank(values, q):
+    """The q-quantile of ``values`` by nearest rank (q=1 is the maximum)."""
+    s = sorted(values)
+    return s[max(0, math.ceil(q * len(s)) - 1)]
+
+
 # ---------------------------------------------------------------------------
 # the layer geometries and their yardsticks
 # ---------------------------------------------------------------------------
@@ -97,29 +113,56 @@ def layer_geometries(cfg):
     return out
 
 
-def conv_geometry(x_shape, w_shape, stride, transpose):
-    """(stride, pads, in_dilation) that `conv3d_fwd` /
-    `conv3d_transpose_fwd` hand to the kernel."""
+def useful_macs(x_shape, w_shape, stride, transpose):
+    """Multiply-adds on real input elements of the SAME conv (or SAME
+    transposed conv): taps that land on a dilation zero or on padding are
+    not counted."""
     from repro_torch.kernels.conv3d.conv3d import same_pads, transpose_pads
-    if transpose:
-        return 1, tuple(transpose_pads(k, stride) for k in w_shape[:3]), stride
-    return stride, tuple(same_pads(L, k, stride)[:2]
-                         for L, k in zip(x_shape[1:4], w_shape[:3])), 1
-
-
-def useful_macs(x_shape, w_shape, stride, pads, dil):
-    """Multiply-adds on real input elements: taps that land on a dilation
-    zero or on padding are not counted."""
-    from repro_torch.kernels.conv3d.conv3d import out_dims
-    outs = out_dims(x_shape[1:4], w_shape[:3], stride=stride, pads=pads,
-                    in_dilation=dil)
     taps = 1
-    for L, k, O, (lo, _hi) in zip(x_shape[1:4], w_shape[:3], outs, pads):
+    for L, k in zip(x_shape[1:4], w_shape[:3]):
+        if transpose:      # input dilated by the stride, then stride 1
+            lo, s, dil, outs = transpose_pads(k, stride)[0], 1, stride, \
+                L * stride
+        else:
+            lo, _, outs = same_pads(L, k, stride)
+            s, dil = stride, 1
         ld = (L - 1) * dil + 1
-        taps *= sum(1 for o in range(O) for j in range(k)
-                    if 0 <= o * stride + j - lo < ld
-                    and (o * stride + j - lo) % dil == 0)
+        taps *= sum(1 for o in range(outs) for j in range(k)
+                    if 0 <= o * s + j - lo < ld and (o * s + j - lo) % dil == 0)
     return x_shape[0] * x_shape[4] * w_shape[4] * taps
+
+
+def layer_bound(macs, nbytes, dname):
+    """(bound ms, "operations" | "bytes") of one launch: the larger of its
+    useful operations over the peak rate and its bytes over HBM's rate."""
+    t_ops = 2 * macs / PEAK_OPS_PER_S[dname] * 1e3
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    return max(t_ops, t_bytes), ("operations" if t_ops > t_bytes else "bytes")
+
+
+def kernel_entry(rows, launches):
+    """The conv kernel's line of the ``kernels`` JSON: one bucket-128
+    generator pass in f32, its four launches summed.  Its bound is the sum
+    of the launches' own bounds (they run one after another); ``bound_by``
+    names the side that holds the larger part of that sum."""
+    main = [r for r in rows if r["dtype"] == "float32"
+            and r["layer"].startswith("gen_")]
+    by = {"operations": 0.0, "bytes": 0.0}
+    for r in main:
+        by[r["bound_by"]] += r["bound_ms"]
+    return {
+        "name": "conv3d_fwd",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/conv3d/csrc/conv3d_fwd.cu",
+        "replaces": "src/repro/kernels/conv3d/conv3d.py:174",
+        "launches": launches,
+        "max_abs_err": max(r["max_abs_err"] for r in main),
+        "ms": sum(r["ms"] for r in main),
+        "plain_ms": sum(r["plain_ms"] for r in main),
+        "bound_ms": sum(r["bound_ms"] for r in main),
+        "bound_by": max(by, key=by.get),
+        "library_ms": sum(r["library_ms"] for r in main),
+    }
 
 
 def library_conv(x, w, b, *, stride, transpose, activation):
@@ -151,14 +194,17 @@ def library_conv(x, w, b, *, stride, transpose, activation):
 
 def kernel_phase(cfg):
     """Kernel vs plain version (and the cuDNN yardstick) per layer and
-    dtype; returns the rows."""
+    dtype, through the public entry points; returns the rows."""
     import torch
     from repro_torch.kernels.conv3d import conv3d as conv_mod
-    from repro_torch.kernels.conv3d.ref import conv_core_ref
+    from repro_torch.kernels.conv3d import ref
     gen = torch.Generator(device="cuda").manual_seed(0)
     rows = []
     for name, xs, ws, stride, transpose, act in layer_geometries(cfg):
-        s, pads, dil = conv_geometry(xs, ws, stride, transpose)
+        fwd = (conv_mod.conv3d_transpose_fwd if transpose
+               else conv_mod.conv3d_fwd)
+        fwd_ref = (ref.conv3d_transpose_bias_act_ref if transpose
+                   else ref.conv3d_bias_act_ref)
         for dtype in (torch.float32, torch.bfloat16):
             dname = str(dtype).replace("torch.", "")
             x = torch.randn(xs, generator=gen, device="cuda").to(dtype)
@@ -167,12 +213,10 @@ def kernel_phase(cfg):
             wd, bd = w.to(dtype), b.to(dtype)
 
             def kern():
-                return conv_mod.conv_core(x, wd, bd, stride=s, pads=pads,
-                                          in_dilation=dil, activation=act)
+                return fwd(x, wd, bd, stride, activation=act)
 
             def plain():
-                return conv_core_ref(x, wd, bd, stride=s, pads=pads,
-                                     in_dilation=dil, activation=act)
+                return fwd_ref(x, wd, bd, stride, activation=act)
 
             def lib():
                 return library_conv(x, wd, bd, stride=stride,
@@ -190,26 +234,24 @@ def kernel_phase(cfg):
             lib_diff = (yk.float() - yl.float()).abs()
             lib_ok = bool((lib_diff <= atol + rtol * yl.float().abs()).all())
             ms_k, ms_p, ms_l = cuda_ms(kern), cuda_ms(plain), cuda_ms(lib)
-            macs = useful_macs(xs, ws, s, pads, dil)
+            macs = useful_macs(xs, ws, stride, transpose)
             nbytes = (x.numel() + wd.numel() + bd.numel() + yk.numel()) \
                 * x.element_size()
-            t_ops = 2 * macs / PEAK_OPS_PER_S[dname] * 1e3
-            t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+            bound_ms, bound_by = layer_bound(macs, nbytes, dname)
             row = {"layer": name, "dtype": dname, "x": list(xs),
                    "w": list(ws), "stride": stride, "transpose": transpose,
                    "activation": act, "max_abs_err": max_abs,
                    "max_rel_err": max_rel, "atol": atol, "rtol": rtol,
                    "library_max_abs_err": float(lib_diff.max()),
                    "ms": ms_k, "plain_ms": ms_p, "library_ms": ms_l,
-                   "bound_ms": max(t_ops, t_bytes),
-                   "bound_by": "operations" if t_ops > t_bytes else "bytes",
+                   "bound_ms": bound_ms, "bound_by": bound_by,
                    "useful_gflop": 2 * macs / 1e9, "mbytes": nbytes / 1e6}
             rows.append(row)
             print(f"  {name:10s} {dname:8s} max_abs={max_abs:.3e} "
                   f"max_rel={max_rel:.3e} (atol {atol}, rtol {rtol}) "
                   f"kernel_ms={ms_k:.4f} plain_ms={ms_p:.4f} "
-                  f"library_ms={ms_l:.4f} bound_ms={row['bound_ms']:.4f} "
-                  f"({row['bound_by']})", flush=True)
+                  f"library_ms={ms_l:.4f} bound_ms={bound_ms:.4f} "
+                  f"({bound_by})", flush=True)
             check(ok, f"{name} {dname}: kernel disagrees with the plain "
                       f"version (max abs {max_abs}, max rel {max_rel})")
             check(lib_ok, f"{name} {dname}: cuDNN yardstick disagrees with "
@@ -223,43 +265,100 @@ def kernel_phase(cfg):
 # ---------------------------------------------------------------------------
 
 
+def request_sizes(n, seed, check_first=True):
+    """``n`` request sizes: ``CHECK_SIZES`` first (unless not
+    ``check_first``), the rest drawn uniformly from 1..96 by ``seed``."""
+    head = list(CHECK_SIZES) if check_first else []
+    rng = np.random.default_rng(seed)
+    return head + [int(s) for s in rng.integers(1, 97, n - len(head))]
+
+
+def make_requests(sizes, seed):
+    from repro_torch.serve.simulate import SimRequest
+    rng = np.random.default_rng(seed)
+    energies = rng.uniform(10.0, 500.0, len(sizes))
+    return [SimRequest(rid=i, primary_energy=float(e), n_events=n,
+                       seed=1000 + i)
+            for i, (n, e) in enumerate(zip(sizes, energies))]
+
+
+def closed_window(cfg, params, reference, sizes, label):
+    """Submit every request at once, serve until the queue drains; return
+    (engine, requests, seconds, gate)."""
+    import torch
+    from repro_torch.serve.simulate import PhysicsGate, SimulateEngine
+    gate = PhysicsGate(reference, window=256)
+    eng = SimulateEngine(cfg, params, buckets=BUCKETS, gate=gate,
+                         device="cuda")
+    reqs = make_requests(sizes, seed=7)
+    for r in reqs:
+        eng.submit(r)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    eng.run()
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    n_ev = eng.stats["events_generated"]
+    print(f"  {label}: {len(reqs)} requests / {n_ev} events in {dt:.3f} s: "
+          f"{n_ev / dt:.1f} events/s, steps={eng.stats['bucket_steps']}",
+          flush=True)
+    return eng, reqs, dt, gate
+
+
+def open_loop(cfg, params, sizes, rate_rps, seed):
+    """Poisson arrivals at ``rate_rps``; one bucket step at a time.  Each
+    latency runs from the request's scheduled arrival to its images on the
+    host (a request that arrives during a step is submitted after it, and
+    that wait is counted)."""
+    import torch
+    from repro_torch.serve.simulate import SimulateEngine
+    eng = SimulateEngine(cfg, params, buckets=BUCKETS, device="cuda")
+    reqs = make_requests(sizes, seed=seed)
+    arrive = np.cumsum(np.random.default_rng(seed).exponential(
+        1.0 / rate_rps, len(reqs)))
+    late = {}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    i = 0
+    while i < len(reqs) or eng.scheduler.queue_depth():
+        now = time.perf_counter() - t0
+        while i < len(reqs) and arrive[i] <= now:
+            late[reqs[i].rid] = now - arrive[i]
+            eng.submit(reqs[i])
+            i += 1
+        if eng.scheduler.queue_depth():
+            eng.run(max_steps=1)
+        elif i < len(reqs):
+            time.sleep(max(0.0, arrive[i] - (time.perf_counter() - t0)))
+    dt = time.perf_counter() - t0
+    check(all(r.status == "done" for r in reqs), "open loop: not all served")
+    return [r.latency_s + late[r.rid] for r in reqs], dt, \
+        eng.stats["events_generated"]
+
+
 def e2e_phase(cfg, card):
     import torch
     from repro_torch.convert import generator_from_numpy, generator_to_numpy
     from repro_torch.core import gan, validation
     from repro_torch.data.calo import CaloSimulator, CaloSpec
     from repro_torch.kernels.conv3d import conv3d as conv_mod
-    from repro_torch.serve.simulate import (PhysicsGate, SimRequest,
-                                            SimulateEngine, event_noise)
+    from repro_torch.serve.simulate import SimulateEngine, event_noise
 
     params = gan.init_generator(torch.Generator().manual_seed(0), cfg, "cuda")
     mc = next(CaloSimulator(CaloSpec(image_shape=cfg.image_shape),
                             seed=1).batches(256))
     reference = validation.reference_profiles(mc["image"], mc["e_p"])
-
-    def requests():
-        sizes = (1, 7, 45, 130, 3, 64, 19)
-        return [SimRequest(rid=i, primary_energy=20.0 + 60.0 * i,
-                           n_events=n, seed=1000 + i)
-                for i, n in enumerate(sizes)]
+    sizes = request_sizes(WINDOW_REQUESTS, seed=3)
 
     # warm-up: cuBLAS handles, allocator pools (not measured)
     warm = SimulateEngine(cfg, params, buckets=BUCKETS, device="cuda")
     warm.warmup()
     warm.generate_events(100.0, 40, seed=5)
 
-    gate = PhysicsGate(reference, window=256)
-    eng = SimulateEngine(cfg, params, buckets=BUCKETS, gate=gate,
-                         device="cuda")
-    reqs = requests()
-    for r in reqs:
-        eng.submit(r)
-    torch.cuda.synchronize()
+    # the main path: counts reset just before, read just after
     conv_mod.LAUNCHES = 0
-    t0 = time.perf_counter()
-    done = eng.run()
-    torch.cuda.synchronize()
-    dt = time.perf_counter() - t0
+    eng, reqs, dt, gate = closed_window(cfg, params, reference, sizes,
+                                        "window 1 (main path)")
     launches = conv_mod.LAUNCHES
     steps = eng.stats["steps"]
     gate.flush()
@@ -267,7 +366,6 @@ def e2e_phase(cfg, card):
     check(launches == n_layers * steps,
           f"{launches} conv kernel launches for {steps} bucket steps "
           f"(want {n_layers} per step)")
-    check(len(done) == len(reqs), f"{len(done)} of {len(reqs)} served")
     for r in reqs:
         check(r.status == "done" and r.images is not None
               and r.images.shape == (r.n_events, *cfg.image_shape, 1),
@@ -275,47 +373,72 @@ def e2e_phase(cfg, card):
               f"{None if r.images is None else r.images.shape}")
         check(bool(np.isfinite(r.images).all()), f"request {r.rid}: nonfinite")
         check(bool((r.images >= 0).all()), f"request {r.rid}: negative")
+    print(f"  conv launches={launches} for {steps} steps; gate: "
+          f"{gate.latest()}", flush=True)
+    check_reqs = reqs[:len(CHECK_SIZES)]
     n_ev = eng.stats["events_generated"]
-    lats = sorted(r.latency_s for r in done)
+    runs = [n_ev / dt]
+    del eng, reqs
 
-    def pct(q):
-        return 1e3 * lats[min(len(lats) - 1, int(len(lats) * q))]
+    for k in range(2, WINDOW_REPEATS + 1):
+        e, _, t, _ = closed_window(cfg, params, reference, sizes,
+                                   f"window {k}")
+        runs.append(e.stats["events_generated"] / t)
+        del e
+    med = float(np.median(runs))
+    spread = (max(runs) - min(runs)) / med
+    print(f"  events/s over {WINDOW_REPEATS} windows of {len(sizes)} "
+          f"requests / {n_ev} events: {[round(v, 1) for v in runs]}, "
+          f"median {med:.1f}, spread (max-min)/median {100 * spread:.1f}% "
+          f"[{card}]", flush=True)
 
-    print(f"  served {len(done)} requests / {n_ev} events in {dt:.3f} s: "
-          f"{n_ev / dt:.1f} events/s, latency p50={pct(0.5):.1f} ms "
-          f"p99={pct(0.99):.1f} ms, steps={eng.stats['bucket_steps']}, "
-          f"conv launches={launches} [{card}]", flush=True)
-    print(f"  gate: {gate.latest()}", flush=True)
-
-    # packing invariance: each request served alone, bit for bit
-    for r in reqs:
+    # packing invariance: each check request served alone, bit for bit
+    for r in check_reqs:
         solo = SimulateEngine(cfg, params, buckets=BUCKETS, device="cuda")
         alone = solo.generate_events(r.primary_energy, r.n_events, r.seed)
         check(np.array_equal(alone, r.images),
               f"request {r.rid} ({r.n_events} events) served alone differs "
               f"from packed: max abs {np.abs(alone - r.images).max()}")
-    print("  packing invariance: every request alone == packed, bit for bit",
-          flush=True)
+    print(f"  packing invariance: each of {len(check_reqs)} requests "
+          f"(sizes {CHECK_SIZES}) alone == packed, bit for bit", flush=True)
 
     # the engine's showers vs the plain-version generator on the CPU, on
-    # the same noise
-    r = reqs[1]
-    noise = event_noise([r.seed] * r.n_events, range(r.n_events),
-                        cfg.latent_dim, "cuda", torch.float32).cpu()
+    # the same noise, for every check request (130 spans two steps)
     cpu_params = generator_from_numpy(generator_to_numpy(params), "cpu")
-    e_p = torch.full((r.n_events,), r.primary_energy)
-    theta = torch.full((r.n_events,), r.theta)
-    with torch.inference_mode():
-        ref = gan.generate(cpu_params, noise, e_p, theta, cfg).numpy()
-    err = float(np.abs(ref - r.images).max())
-    scale = float(np.abs(ref).max())
-    print(f"  engine vs plain generator (CPU): max abs {err:.3e} of max "
-          f"{scale:.3e} (tolerance 1e-4 relative to the max)", flush=True)
+    err, scale = 0.0, 0.0
+    for r in check_reqs:
+        noise = event_noise([r.seed] * r.n_events, range(r.n_events),
+                            cfg.latent_dim, "cuda", torch.float32).cpu()
+        e_p = torch.full((r.n_events,), r.primary_energy)
+        theta = torch.full((r.n_events,), r.theta)
+        with torch.inference_mode():
+            ref = gan.generate(cpu_params, noise, e_p, theta, cfg).numpy()
+        err = max(err, float(np.abs(ref - r.images).max()))
+        scale = max(scale, float(np.abs(ref).max()))
+    print(f"  engine vs plain generator (CPU), {sum(CHECK_SIZES)} events: "
+          f"max abs {err:.3e} of max {scale:.3e} (tolerance 1e-4 relative "
+          f"to the max)", flush=True)
     check(err <= 1e-4 * scale, f"engine vs plain generator: {err} > "
                                f"1e-4 * {scale}")
-    return {"launches": launches, "steps": steps, "events": n_ev,
-            "events_per_s": n_ev / dt, "p50_ms": pct(0.5),
-            "p99_ms": pct(0.99), "engine_vs_plain_max_abs": err}
+
+    # latency under an open-loop load below the measured throughput
+    ol_sizes = request_sizes(OPEN_LOOP_REQUESTS, seed=11, check_first=False)
+    rate = OPEN_LOOP_LOAD * med / float(np.mean(ol_sizes))
+    lats, ol_dt, ol_ev = open_loop(cfg, params, ol_sizes, rate, seed=13)
+    lat = {q: 1e3 * nearest_rank(lats, v)
+           for q, v in (("p50", 0.5), ("p90", 0.9), ("p99", 0.99),
+                        ("max", 1.0))}
+    print(f"  open loop: {len(lats)} requests, Poisson arrivals at "
+          f"{rate:.2f} req/s ({OPEN_LOOP_LOAD:.0%} of the median events/s), "
+          f"{ol_ev} events in {ol_dt:.3f} s; latency ms (nearest rank of "
+          f"{len(lats)}) p50={lat['p50']:.1f} p90={lat['p90']:.1f} "
+          f"p99={lat['p99']:.1f} max={lat['max']:.1f} [{card}]", flush=True)
+    return {"launches": launches, "steps": steps, "window_requests":
+            len(sizes), "window_events": n_ev, "events_per_s_runs": runs,
+            "events_per_s_median": med, "events_per_s_spread": spread,
+            "open_loop_rate_rps": rate, "open_loop_requests": len(lats),
+            "open_loop_events": ol_ev, "latency_ms": lat,
+            "engine_vs_plain_max_abs": err}
 
 
 def profile_phase(cfg):
@@ -397,25 +520,7 @@ def main() -> int:
     print("profile (full calo3dgan.config(), f32 policy):", flush=True)
     e2e["profile"] = profile_phase(cfg)
 
-    main_rows = [r for r in rows if r["dtype"] == "float32"
-                 and r["layer"].startswith("gen_")]
-    t_ops = sum(2e9 * r["useful_gflop"] / PEAK_OPS_PER_S["float32"]
-                for r in main_rows)
-    t_bytes = sum(1e6 * r["mbytes"] / HBM_BYTES_PER_S for r in main_rows)
-    entry = {
-        "name": "conv3d_fwd",
-        "route": "cuda",
-        "source": "src/repro_torch/kernels/conv3d/csrc/conv3d_fwd.cu",
-        "replaces": "src/repro/kernels/conv3d/conv3d.py:174",
-        "launches": e2e["launches"],
-        # one bucket-128 generator pass (its 4 conv launches) in f32
-        "max_abs_err": max(r["max_abs_err"] for r in main_rows),
-        "ms": sum(r["ms"] for r in main_rows),
-        "plain_ms": sum(r["plain_ms"] for r in main_rows),
-        "bound_ms": 1e3 * max(t_ops, t_bytes),
-        "bound_by": "operations" if t_ops > t_bytes else "bytes",
-        "library_ms": sum(r["library_ms"] for r in main_rows),
-    }
+    entry = kernel_entry(rows, e2e["launches"])
     print(json.dumps({"layers": rows, "e2e": e2e}), flush=True)
     print(card, flush=True)
     print(json.dumps({"kernels": [entry]}), flush=True)

@@ -184,13 +184,52 @@ def test_chip_smoke_counts_useful_macs():
     stride-2 transposed 3-tap conv 3/2 taps per output per dim."""
     cs = _chip_smoke()
     assert cs.useful_macs((2, 4, 4, 4, 3), (1, 1, 1, 3, 5), 1,
-                          ((0, 0),) * 3, 1) == 2 * 64 * 3 * 5
-    s, pads, dil = cs.conv_geometry((1, 6, 6, 6, 1), (3, 3, 3, 1, 1), 2, True)
+                          False) == 2 * 64 * 3 * 5
+    lo = tconv.transpose_pads(3, 2)[0]
     per_dim = sum(1 for o in range(12) for j in range(3)
-                  if 0 <= o + j - pads[0][0] < 11
-                  and (o + j - pads[0][0]) % 2 == 0)
+                  if 0 <= o + j - lo < 11 and (o + j - lo) % 2 == 0)
     # each input element feeds 3 outputs, except the last: the SAME rule
     # keeps 2 * 6 outputs of the 2 * 6 + 1 a full transposed conv has
     assert per_dim == 6 * 3 - 1
-    assert cs.useful_macs((1, 6, 6, 6, 1), (3, 3, 3, 1, 1), s, pads,
-                          dil) == per_dim ** 3
+    assert cs.useful_macs((1, 6, 6, 6, 1), (3, 3, 3, 1, 1), 2,
+                          True) == per_dim ** 3
+    # stride-2 SAME conv over 7 (pads 1, 1): outputs 0..3 read 2o-1..2o+1,
+    # of which 2 + 3 + 3 + 2 fall inside 0..6
+    assert cs.useful_macs((1, 7, 1, 1, 1), (3, 1, 1, 1, 1), 2,
+                          False) == 10
+
+
+def test_chip_smoke_kernel_bound_is_the_sum_of_launch_bounds():
+    """The kernels line's bound for a generator pass is the sum of its
+    launches' own bounds, each the larger of operations and bytes; the
+    bf16 and discriminator rows stay out of it."""
+    cs = _chip_smoke()
+    b_ops, by_ops = cs.layer_bound(67e9, 1e6, "float32")      # 2 ms vs 0.3 us
+    b_bytes, by_bytes = cs.layer_bound(1, 3.35e9, "float32")  # 1 ms of bytes
+    assert (by_ops, by_bytes) == ("operations", "bytes")
+    np.testing.assert_allclose([b_ops, b_bytes], [2.0, 1.0], rtol=1e-12)
+
+    def row(layer, dtype, bound_ms, bound_by, ms=1.0):
+        return {"layer": layer, "dtype": dtype, "bound_ms": bound_ms,
+                "bound_by": bound_by, "ms": ms, "plain_ms": 2 * ms,
+                "library_ms": 3 * ms, "max_abs_err": ms / 10}
+
+    rows = [row("gen_up0", "float32", 2.0, "operations"),
+            row("gen_out", "float32", 1.5, "bytes"),
+            row("gen_up1", "float32", 0.5, "operations", ms=4.0),
+            row("gen_up0", "bfloat16", 9.0, "bytes", ms=9.0),
+            row("disc_conv0", "float32", 9.0, "bytes", ms=9.0)]
+    e = cs.kernel_entry(rows, launches=12)
+    assert e["bound_ms"] == 4.0 and e["bound_by"] == "operations"
+    assert (e["ms"], e["plain_ms"], e["library_ms"]) == (6.0, 12.0, 18.0)
+    assert e["max_abs_err"] == 0.4 and e["launches"] == 12
+
+
+def test_chip_smoke_nearest_rank():
+    cs = _chip_smoke()
+    vals = list(range(200, 0, -1))
+    assert cs.nearest_rank(vals, 0.5) == 100
+    assert cs.nearest_rank(vals, 0.99) == 198
+    assert cs.nearest_rank(vals, 1.0) == 200
+    assert cs.request_sizes(10, seed=0)[:7] == list(cs.CHECK_SIZES)
+    assert all(1 <= s <= 96 for s in cs.request_sizes(50, 1, False))
