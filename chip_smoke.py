@@ -3,24 +3,36 @@
 Run from the root of a checkout:  python3 chip_smoke.py
 
 1. prints the card's name and power limit (nvidia-smi);
-2. builds the port's CUDA kernels from ``src/repro_torch/kernels/*/csrc``
-   into ``build/kernels/`` and prints the build time;
-3. holds the conv3d kernel, through the public entry points
+2. builds the port's CUDA kernels (``conv3d_fwd``, ``conv3d_dw``) from
+   ``src/repro_torch/kernels/*/csrc`` into ``build/kernels/``, one nvcc
+   per source, all at once, and prints the build time;
+3. forward: holds the conv3d kernel, through the public entry points
    ``conv3d_fwd`` / ``conv3d_transpose_fwd``, against their plain PyTorch
-   versions at the four generator-layer geometries of the full
-   ``calo3dgan.config()`` at bucket 128, plus the discriminator's stride-2
-   Ci=1 input layer, in f32 and bf16 with TF32 off, and times kernel,
-   plain version and one cuDNN call;
-4. serves a window of full-width requests through ``SimulateEngine`` on
-   the card (the main path: conv launch count reset just before, read just
-   after) and checks the results (exact event counts, finite non-negative
-   showers, 4 conv kernel launches per bucket step, packing invariance,
-   agreement with the plain-version generator on the CPU); serves the same
-   window twice more for the spread of events/s, then an open-loop run of
-   Poisson arrivals for request latency;
-5. profiles one bucket-128 step (device time by kernel, busy share);
-6. prints the kernels' JSON line, the card line again, and as its last
-   line ``{"ok": true, "device": {...}}``.
+   versions at the eight conv geometries of the full ``calo3dgan.config()``
+   at batch 128 (four generator, four discriminator), in f32 and bf16 with
+   TF32 off, and times kernel, plain version and one cuDNN call;
+4. gradients: the same eight layers through ``conv3d_*_dx`` (the forward
+   kernel on the cotangent) and ``conv3d_*_dw`` (the dw kernel) against
+   ``ref.conv3d_*_dx`` / ``ref.conv3d_*_dw``, timed beside the library's
+   ``torch.nn.grad.conv3d_input`` / ``conv3d_weight`` (or ``F.conv3d``);
+5. serving: a window of full-width requests through ``SimulateEngine``
+   (the serving main path: launch counts reset just before, read just
+   after) with its checks (exact event counts, finite non-negative
+   showers, 4 launches per bucket step, packing invariance, agreement
+   with the plain-version generator on the CPU), two more windows for
+   the spread of events/s, an open-loop run for latency, and one
+   profiled bucket-128 step;
+6. training: one full-width f32 step on the card against the CPU's
+   plain route from the same state and inputs (SGD, gradients and updates
+   compared leaf by leaf, LeakyReLU branches counted); then the training
+   main path: 2 warm-up and 10 timed steps of ``calo3dgan.config()`` at
+   batch 128, bf16, RMSprop 1e-4 through ``Engine.fit`` (counts reset
+   just before, read just after: exactly 50 ``conv3d_fwd`` and 16
+   ``conv3d_dw`` launches per step); the same step twice, bit for bit;
+   the skip-on-nonfinite guard under bf16 and fp16; one profiled step;
+7. writes every number to ``results/chip_smoke.json``, prints the
+   kernels' JSON line, the card line again, and as its last line
+   ``{"ok": true, "device": {...}}``.
 
 Any failed check raises, so the script exits non-zero and prints no ok
 line.  It needs a CUDA card and the repository's ``src/`` beside it.
@@ -47,6 +59,21 @@ WINDOW_REQUESTS = 240             # closed-batch window (incl. CHECK_SIZES)
 WINDOW_REPEATS = 3                # the main run plus two more, for spread
 OPEN_LOOP_REQUESTS = 200
 OPEN_LOOP_LOAD = 0.6              # offered load, share of measured events/s
+DW_TOL = 1e-4                     # dw: max abs err / largest |dw| (f32 sums)
+TRAIN_WARMUP, TRAIN_STEPS = 2, 10
+CHECK_BATCH = 8                   # card-vs-CPU step: full width, small batch
+# card vs CPU, each gradient and param-update leaf against its largest
+# magnitude: GRAD_TOL; KINK_TOL for a leaf upstream of a LeakyReLU whose
+# branch the two sides took differently at some element (f32 rounding
+# decides the branch of an input within KINK_NEAR of the spread of zero,
+# and the flip moves that element's slope from 1 to 0.2 in one phase's
+# backward); the losses to LOSS_TOL.  A leaf is measured against no less
+# than FLOOR of its phase's largest gradient: a leaf whose terms cancel
+# (D on fake's angle/b is 0.1/8 times eight signs, four each way: zero in
+# exact arithmetic) holds only a residue of a few ulp of its terms, which
+# no relative bound can take, and FLOOR * GRAD_TOL = 1e-9 of the phase's
+# largest is a fraction of one ulp of it.
+GRAD_TOL, KINK_TOL, KINK_NEAR, LOSS_TOL, FLOOR = 1e-4, 1e-2, 1e-5, 1e-5, 1e-5
 
 
 def check(cond, msg):
@@ -95,8 +122,7 @@ def nearest_rank(values, q):
 
 def layer_geometries(cfg):
     """(name, x shape, w shape, stride, transpose, activation) of every conv
-    of the full generator at bucket 128, plus the discriminator's input
-    conv (the next slice's first layer)."""
+    of the full generator and discriminator at batch (bucket) 128."""
     from repro_torch.core.gan import _start_dims
     chs = cfg.gen_channels
     ups = len(chs) - 1
@@ -108,9 +134,32 @@ def layer_geometries(cfg):
         dims = tuple(2 * d for d in dims)
     out.append(("gen_out", (BATCH, *cfg.image_shape, chs[-1]),
                 (3, 3, 3, chs[-1], 1), 1, False, "softplus"))
-    out.append(("disc_conv0", (BATCH, *cfg.image_shape, 1),
-                (3, 3, 3, 1, cfg.disc_channels[0]), 2, False, "none"))
+    dims, c_in = tuple(cfg.image_shape), 1
+    for i, c in enumerate(cfg.disc_channels):
+        out.append((f"disc_conv{i}", (BATCH, *dims, c_in),
+                    (3, 3, 3, c_in, c), 2, False, "none"))
+        dims, c_in = tuple(-(-d // 2) for d in dims), c
     return out
+
+
+def per_step(rows, counts, kinds, dtype="bfloat16"):
+    """Sum of ``ms``, ``plain_ms``, ``library_ms`` and ``bound_ms`` over the
+    launches of one training step: each row of ``dtype`` whose kind is in
+    ``kinds``, weighted by its launches per step.  ``bound_by`` names the
+    side holding the larger part of the bound."""
+    tot = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bound_ms": 0.0,
+           "launches": 0}
+    by = {"operations": 0.0, "bytes": 0.0}
+    for r in rows:
+        n = counts.get((r["layer"], r["kind"]), 0)
+        if r["dtype"] != dtype or r["kind"] not in kinds or not n:
+            continue
+        for k in ("ms", "plain_ms", "library_ms", "bound_ms"):
+            tot[k] += n * r[k]
+        tot["launches"] += n
+        by[r["bound_by"]] += n * r["bound_ms"]
+    tot["bound_by"] = max(by, key=by.get)
+    return tot
 
 
 def useful_macs(x_shape, w_shape, stride, transpose):
@@ -146,7 +195,7 @@ def kernel_entry(rows, launches):
     of the launches' own bounds (they run one after another); ``bound_by``
     names the side that holds the larger part of that sum."""
     main = [r for r in rows if r["dtype"] == "float32"
-            and r["layer"].startswith("gen_")]
+            and r["layer"].startswith("gen_") and r["kind"] == "fwd"]
     by = {"operations": 0.0, "bytes": 0.0}
     for r in main:
         by[r["bound_by"]] += r["bound_ms"]
@@ -170,7 +219,8 @@ def library_conv(x, w, b, *, stride, transpose, activation):
     yardstick only; the port never calls it).  The transposed conv is
     ``F.conv_transpose3d`` with the kernel flipped and ci/co swapped, whose
     output is one element longer per dim than the SAME rule keeps; the
-    forward conv needs symmetric pads, which every geometry here has."""
+    forward conv pads the input first where the SAME pads are
+    asymmetric."""
     import torch.nn.functional as F
     from repro_torch.kernels.conv3d.conv3d import same_pads
     xc = x.permute(0, 4, 1, 2, 3)          # NCDHW view of NDHWC memory
@@ -182,7 +232,10 @@ def library_conv(x, w, b, *, stride, transpose, activation):
     else:
         pads = [same_pads(L, k, stride)[:2]
                 for L, k in zip(x.shape[1:4], w.shape[:3])]
-        check(all(lo == hi for lo, hi in pads), f"asymmetric pads {pads}")
+        if any(lo != hi for lo, hi in pads):   # F.conv3d pads symmetrically
+            (dl, dh), (hl, hh), (wl, wh) = pads
+            xc = F.pad(xc, (wl, wh, hl, hh, dl, dh))
+            pads = [(0, 0)] * 3
         y = F.conv3d(xc, w.permute(4, 3, 0, 1, 2), b, stride=stride,
                      padding=tuple(lo for lo, _ in pads))
     if activation == "softplus":
@@ -238,7 +291,8 @@ def kernel_phase(cfg):
             nbytes = (x.numel() + wd.numel() + bd.numel() + yk.numel()) \
                 * x.element_size()
             bound_ms, bound_by = layer_bound(macs, nbytes, dname)
-            row = {"layer": name, "dtype": dname, "x": list(xs),
+            row = {"layer": name, "kind": "fwd", "dtype": dname,
+                   "x": list(xs),
                    "w": list(ws), "stride": stride, "transpose": transpose,
                    "activation": act, "max_abs_err": max_abs,
                    "max_rel_err": max_rel, "atol": atol, "rtol": rtol,
@@ -261,7 +315,168 @@ def kernel_phase(cfg):
 
 
 # ---------------------------------------------------------------------------
-# end to end
+# gradients: dx (the forward kernel) and dw (the dw kernel) per layer
+# ---------------------------------------------------------------------------
+
+
+def _ncdhw(t):
+    return t.permute(0, 4, 1, 2, 3)
+
+
+def library_dx(x_shape, w, g, *, stride, transpose):
+    """dx by one library call (a yardstick; the port never calls it).  SAME
+    conv: ``torch.nn.grad.conv3d_input`` over the padded input, cropped.
+    SAME transposed conv (``F.conv_transpose3d`` with the kernel flipped,
+    ci/co swapped, its output cropped at the end): dx is ``F.conv3d`` of
+    the cotangent zero-extended to the uncropped size."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.conv3d.conv3d import same_pads
+    if transpose:
+        wt = w.flip(0, 1, 2).permute(3, 4, 0, 1, 2)
+        g_full = F.pad(_ncdhw(g), (0, 1, 0, 1, 0, 1))
+        return F.conv3d(g_full, wt, stride=stride).permute(0, 2, 3, 4, 1)
+    pads = [same_pads(L, k, stride)[:2]
+            for L, k in zip(x_shape[1:4], w.shape[:3])]
+    size = (x_shape[0], x_shape[4], *(L + lo + hi for L, (lo, hi)
+                                      in zip(x_shape[1:4], pads)))
+    dxp = torch.nn.grad.conv3d_input(size, w.permute(4, 3, 0, 1, 2),
+                                     _ncdhw(g), stride=stride)
+    (dl, _), (hl, _), (wl, _) = pads
+    D, H, W = x_shape[1:4]
+    return dxp[:, :, dl:dl + D, hl:hl + H, wl:wl + W].permute(0, 2, 3, 4, 1)
+
+
+def library_dw_operands(x, g, *, stride, transpose):
+    """The (input, grad_output) that ``torch.nn.grad.conv3d_weight`` takes
+    for this layer's dw, made once before timing: the padded input and g
+    (SAME conv), or the zero-extended g and x (transposed conv)."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.conv3d.conv3d import same_pads
+    if transpose:
+        return F.pad(_ncdhw(g), (0, 1, 0, 1, 0, 1)), _ncdhw(x)
+    pads = [same_pads(L, 3, stride)[:2] for L in x.shape[1:4]]
+    (dl, dh), (hl, hh), (wl, wh) = pads
+    return F.pad(_ncdhw(x), (wl, wh, hl, hh, dl, dh)), _ncdhw(g)
+
+
+def library_dw(inp, grad_out, w_shape, *, stride, transpose):
+    """dw by ``torch.nn.grad.conv3d_weight`` (a yardstick), as DHWIO."""
+    import torch
+    KD, KH, KW, Ci, Co = w_shape
+    if transpose:      # the weight of conv(g; W'), W' = flipped, swapped w
+        dwt = torch.nn.grad.conv3d_weight(inp, (Ci, Co, KD, KH, KW),
+                                          grad_out, stride=stride)
+        return dwt.permute(2, 3, 4, 0, 1).flip(0, 1, 2)
+    dwc = torch.nn.grad.conv3d_weight(inp, (Co, Ci, KD, KH, KW), grad_out,
+                                      stride=stride)
+    return dwc.permute(2, 3, 4, 1, 0)
+
+
+def grad_phase(cfg):
+    """dx and dw kernels vs their plain versions (and the library
+    yardstick) per layer and dtype, through the public entry points;
+    returns the rows (``kind`` "dx" / "dw")."""
+    import torch
+    from repro_torch.kernels.conv3d import conv3d as conv_mod
+    from repro_torch.kernels.conv3d import ref
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    rows = []
+    for name, xs, ws, stride, transpose, _act in layer_geometries(cfg):
+        for dtype in (torch.float32, torch.bfloat16):
+            dname = str(dtype).replace("torch.", "")
+            x = torch.randn(xs, generator=gen, device="cuda").to(dtype)
+            w = (0.05 * torch.randn(ws, generator=gen, device="cuda")
+                 ).to(dtype)
+            fwd = (ref.conv3d_transpose_bias_act_ref if transpose
+                   else ref.conv3d_bias_act_ref)
+            ys = fwd(x[:1], w, None, stride).shape[1:]
+            g = torch.randn((xs[0], *ys), generator=gen,
+                            device="cuda").to(dtype)
+            if transpose:
+                dx_k = lambda: conv_mod.conv3d_transpose_dx(g, w, stride)
+                dx_p = lambda: ref.conv3d_transpose_dx(g, w, stride)
+                dw_k = lambda: conv_mod.conv3d_transpose_dw(
+                    x, g, ws[:3], stride)
+                dw_p = lambda: ref.conv3d_transpose_dw(x, g, ws[:3], stride)
+            else:
+                dx_k = lambda: conv_mod.conv3d_dx(g, w, stride, xs[1:4])
+                dx_p = lambda: ref.conv3d_dx(g, w, stride, xs[1:4])
+                dw_k = lambda: conv_mod.conv3d_dw(x, g, ws[:3], stride)
+                dw_p = lambda: ref.conv3d_dw(x, g, ws[:3], stride)
+            dx_l = lambda: library_dx(xs, w, g, stride=stride,
+                                      transpose=transpose)
+            lib_in, lib_go = library_dw_operands(x, g, stride=stride,
+                                                 transpose=transpose)
+            dw_l = lambda: library_dw(lib_in, lib_go, ws, stride=stride,
+                                      transpose=transpose)
+            # the yardstick's formula, checked on operands upcast to f32
+            # (cuDNN's own bf16 rounding is not what is being checked)
+            xf, wf, gf = x.float(), w.float(), g.float()
+            lib_dx32 = library_dx(xs, wf, gf, stride=stride,
+                                  transpose=transpose)
+            lib_dw32 = library_dw(*library_dw_operands(
+                xf, gf, stride=stride, transpose=transpose), ws,
+                stride=stride, transpose=transpose)
+            plain_dx32 = (ref.conv3d_transpose_dx(gf, wf, stride) if transpose
+                          else ref.conv3d_dx(gf, wf, stride, xs[1:4]))
+            plain_dw32 = (ref.conv3d_transpose_dw(xf, gf, ws[:3], stride)
+                          if transpose else
+                          ref.conv3d_dw(xf, gf, ws[:3], stride))
+            for kind, kern, plain, lib, lib32, plain32 in (
+                    ("dx", dx_k, dx_p, dx_l, lib_dx32, plain_dx32),
+                    ("dw", dw_k, dw_p, dw_l, lib_dw32, plain_dw32)):
+                yk, yp = kern(), plain()
+                torch.cuda.synchronize()
+                check(yk.shape == yp.shape == lib32.shape,
+                      f"{name} {kind}: shapes {yk.shape} {yp.shape} "
+                      f"{lib32.shape}")
+                diff = (yk.float() - yp.float()).abs()
+                max_abs = float(diff.max())
+                scale = float(yp.float().abs().max())
+                if kind == "dx":
+                    atol, rtol = TOL[dname]
+                    ok = bool((diff <= atol + rtol * yp.float().abs()).all())
+                    tol_txt = f"atol {atol}, rtol {rtol}"
+                else:
+                    ok = max_abs <= DW_TOL * scale
+                    tol_txt = f"{DW_TOL} of max |dw| {scale:.4g}"
+                lib_err = float((lib32 - plain32).abs().max())
+                lib_ok = lib_err <= 1e-4 * (1.0 + float(plain32.abs().max()))
+                ms_k, ms_p, ms_l = cuda_ms(kern), cuda_ms(plain), cuda_ms(lib)
+                macs = useful_macs(xs, ws, stride, transpose)
+                if kind == "dx":
+                    nbytes = (g.numel() + w.numel() + x.numel()) \
+                        * x.element_size()
+                else:    # read x and g once, write dw (f32) once
+                    nbytes = (x.numel() + g.numel()) * x.element_size() \
+                        + 4 * w.numel()
+                bound_ms, bound_by = layer_bound(macs, nbytes, dname)
+                rows.append({
+                    "layer": name, "kind": kind, "dtype": dname,
+                    "x": list(xs), "w": list(ws), "stride": stride,
+                    "transpose": transpose, "max_abs_err": max_abs,
+                    "max_abs_ref": scale, "library_f32_err": lib_err,
+                    "ms": ms_k, "plain_ms": ms_p, "library_ms": ms_l,
+                    "bound_ms": bound_ms, "bound_by": bound_by,
+                    "useful_gflop": 2 * macs / 1e9, "mbytes": nbytes / 1e6})
+                print(f"  {name:10s} {dname:8s} {kind} max_abs={max_abs:.3e} "
+                      f"({tol_txt}) kernel_ms={ms_k:.4f} plain_ms={ms_p:.4f} "
+                      f"library_ms={ms_l:.4f} bound_ms={bound_ms:.4f} "
+                      f"({bound_by}); library formula vs plain (f32 "
+                      f"operands) {lib_err:.2e}", flush=True)
+                check(ok, f"{name} {dname} {kind}: kernel disagrees with "
+                          f"the plain version (max abs {max_abs})")
+                check(lib_ok, f"{name} {kind}: the library yardstick is "
+                              f"not the same function (max abs {lib_err})")
+                del yk, yp
+            del x, w, g, lib_in, lib_go
+            torch.cuda.empty_cache()
+    return rows
+
+
+# ---------------------------------------------------------------------------
+# serving end to end
 # ---------------------------------------------------------------------------
 
 
@@ -441,6 +656,23 @@ def e2e_phase(cfg, card):
             "engine_vs_plain_max_abs": err}
 
 
+def device_kernels(prof):
+    """[{kernel, count, ms}] of the device activity a torch.profiler run
+    saw, largest first (empty when it saw none)."""
+    kernels = []
+    for e in prof.key_averages():
+        if not str(getattr(e, "device_type", "")).endswith("CUDA"):
+            continue
+        us = getattr(e, "self_device_time_total", None)
+        if us is None:
+            us = getattr(e, "self_cuda_time_total", 0.0)
+        if us > 0:
+            kernels.append({"kernel": e.key[:90], "count": e.count,
+                            "ms": us / 1e3})
+    kernels.sort(key=lambda k: -k["ms"])
+    return kernels
+
+
 def profile_phase(cfg):
     """One bucket-128 step under torch.profiler: device time by kernel and
     the device's busy share of the step's wall time."""
@@ -459,17 +691,7 @@ def profile_phase(cfg):
         eng.generate_events(100.0, BATCH, seed=4)
         torch.cuda.synchronize()
         wall_ms = 1e3 * (time.perf_counter() - t0)
-    kernels = []
-    for e in prof.key_averages():
-        if not str(getattr(e, "device_type", "")).endswith("CUDA"):
-            continue
-        us = getattr(e, "self_device_time_total", None)
-        if us is None:
-            us = getattr(e, "self_cuda_time_total", 0.0)
-        if us > 0:
-            kernels.append({"kernel": e.key[:90], "count": e.count,
-                            "ms": us / 1e3})
-    kernels.sort(key=lambda k: -k["ms"])
+    kernels = device_kernels(prof)
     busy_ms = sum(k["ms"] for k in kernels)
     print(f"  one bucket-{BATCH} step (request of {BATCH} events, "
           f"including its copy to the host): wall {wall_ms:.3f} ms",
@@ -486,6 +708,385 @@ def profile_phase(cfg):
     return {"wall_ms": wall_ms, "device_ms": busy_ms, "kernels": kernels[:12]}
 
 
+# ---------------------------------------------------------------------------
+# training
+# ---------------------------------------------------------------------------
+
+
+def leaf_items(tree, prefix=""):
+    """[(path, tensor)] of a nested dict, None leaves skipped."""
+    out = []
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            out += leaf_items(v, f"{prefix}{k}/")
+        elif v is not None:
+            out.append((f"{prefix}{k}", v))
+    return out
+
+
+def state_leaves(state):
+    """(path, tensor) of every param, optimizer and loss-scale leaf."""
+    out = []
+    for which in ("g_params", "d_params", "g_opt", "d_opt"):
+        out += leaf_items(getattr(state, which), which + "/")
+    if state.loss_scale is not None:
+        out += [("loss_scale/scale", state.loss_scale.scale),
+                ("loss_scale/good_steps", state.loss_scale.good_steps)]
+    return out
+
+
+def leaf_errors(ra, rb):
+    """{(group, path): (relative error, largest |b|, max |a - b|, group's
+    largest |b|)} of the trees ``ra`` against ``rb`` (one tree per phase,
+    or per network), each leaf against its largest magnitude with a floor
+    of FLOOR of its group's largest."""
+    out = {}
+    for ph, (ga, gb) in enumerate(zip(ra, rb)):
+        items = list(zip(leaf_items(ga), leaf_items(gb)))
+        top = max(float(b.abs().max()) for _, (_, b) in items)
+        for (path, a), (_, b) in items:
+            big, err = float(b.abs().max()), float((a - b).abs().max())
+            out[ph, path] = (err / max(big, FLOOR * top), big, err, top)
+    return out
+
+
+def kink_leaves(cfg, phase, flipped):
+    """The layers (leaf path prefixes) whose gradient in ``phase`` passes
+    a LeakyReLU that took another branch on the two sides: ``flipped``
+    indexes the phase's LeakyReLU calls, in order: D on real, D's (one
+    after each conv); D on fake, G's (no gradient: the forward value is
+    continuous across the kink), then D's; a G phase, G's (after fc and
+    each up-conv), then the frozen D's (a flip there moves every G
+    layer)."""
+    n_g = len(cfg.gen_channels)
+    g_layers = ["fc"] + [f"up{i}" for i in range(n_g - 1)]
+    out = set()
+    for i in flipped:
+        if phase < 2:
+            i -= n_g * phase
+            if i >= 0:
+                out |= {f"conv{k}" for k in range(i + 1)}
+        elif i < n_g:
+            out |= set(g_layers[:i + 1])
+        else:
+            out |= set(g_layers) | {"out"}
+    return out
+
+
+def check_step_phase(cfg):
+    """One full-width f32 step on the card and on the CPU's plain route
+    from the same state and injected inputs, with SGD (an update linear in
+    the gradient).  The gradients each phase hands its optimizer, and each
+    network's update (new - old params), are compared leaf by leaf, each
+    to GRAD_TOL, or to KINK_TOL where a LeakyReLU upstream of it took
+    another branch at an input within rounding of zero (recorded: every
+    LeakyReLU input of both steps); the losses to LOSS_TOL."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.core import adversarial
+    from repro_torch.data.calo import CaloSimulator, CaloSpec
+    from repro_torch.optim import optimizers as opt_lib
+    from repro_torch.substrate import precision
+    from repro_torch.substrate.precision import tree_map
+    B = CHECK_BATCH
+    batch = next(CaloSimulator(CaloSpec(image_shape=cfg.image_shape),
+                               seed=11).batches(B))
+    rng = np.random.default_rng(12)
+    inputs = [(rng.normal(size=(B, cfg.latent_dim)).astype(np.float32),
+               rng.uniform(10.0, 500.0, B).astype(np.float32),
+               rng.uniform(math.radians(60), math.radians(120), B)
+               .astype(np.float32))
+              for _ in range(1 + cfg.gen_steps_per_disc)]
+    out = {}
+    leaky_relu = F.leaky_relu
+    for dev in ("cuda", "cpu"):
+        rec, acts, base = [], [], opt_lib.sgd(1e-2)
+
+        def update(g, st, p=None, rec=rec, base=base):
+            rec.append(tree_map(lambda t: t.detach().cpu(), g))
+            return base.update(g, st, p)
+
+        def recording_leaky_relu(x, *args, acts=acts, **kw):
+            acts.append(x.detach().clone())
+            return leaky_relu(x, *args, **kw)
+        opt = opt_lib.Optimizer(base.init, update)
+        state = adversarial.init_state(torch.Generator().manual_seed(5), cfg,
+                                       opt, opt, policy=precision.FULL,
+                                       device=dev)
+        p0 = {w: tree_map(lambda t: t.detach().cpu().clone(),
+                          getattr(state, w)) for w in ("g_params", "d_params")}
+        step = adversarial.make_fused_step(
+            cfg, opt, opt, policy=precision.FULL,
+            sample_inputs=lambda i, mb: inputs[i])
+        F.leaky_relu = recording_leaky_relu
+        try:
+            t0 = time.perf_counter()
+            new, m = step(state, batch, None)
+            if dev == "cuda":
+                torch.cuda.synchronize()
+            ms = 1e3 * (time.perf_counter() - t0)
+        finally:
+            F.leaky_relu = leaky_relu
+        upd = [tree_map(lambda a, b: a.detach().cpu() - b,
+                        getattr(new, w), p0[w])
+               for w in ("g_params", "d_params")]
+        out[dev] = (rec, upd, {k: float(v) for k, v in m.items()}, ms,
+                    [a.cpu() for a in acts])
+    (rc, uc, mc, tc, ac), (rp, up, mp, tp, ap) = out["cuda"], out["cpu"]
+    check(len(rc) == len(rp) == 2 + cfg.gen_steps_per_disc,
+          f"recorded {len(rc)} / {len(rp)} phases")
+    # the LeakyReLU branches each side took, phase by phase
+    n_g, n_d = len(cfg.gen_channels), len(cfg.disc_channels)
+    calls = [n_d] + [n_g + n_d] * (1 + cfg.gen_steps_per_disc)
+    check(len(ac) == len(ap) == sum(calls),
+          f"{len(ac)} / {len(ap)} LeakyReLU calls, want {sum(calls)}")
+    loose, flips, k = [], [], 0
+    for ph, n in enumerate(calls):
+        flipped = []
+        for i in range(n):
+            a, b = ac[k + i], ap[k + i]
+            flip = (a >= 0) != (b >= 0)
+            if bool(flip.any()):
+                near = float(b[flip].abs().max()) / float(b.std())
+                flips.append(f"phase {ph} LeakyReLU {i}: {int(flip.sum())} "
+                             f"at |x| <= {near:.1e} of the spread")
+                check(near <= KINK_NEAR, f"card vs CPU: {flips[-1]}")
+                flipped.append(i)
+        loose.append(kink_leaves(cfg, ph, flipped))
+        k += n
+    rows = []
+    for what, card, cpu, names, kinked in (
+            ("grad", rc, rp, [f"phase {i}" for i in range(len(rp))], loose),
+            ("update", uc, up, ["G", "D"],
+             [loose[2] | loose[3], loose[0] | loose[1]])):
+        for (g, path), (e, big, err, top) in leaf_errors(card, cpu).items():
+            limit = KINK_TOL if path.split("/")[0] in kinked[g] else GRAD_TOL
+            rows.append((e / limit, e, limit, f"{what} {names[g]} {path}",
+                         big, err, top))
+    # the worst leaf of each phase (and update) at each limit
+    worst = {}
+    for r in rows:
+        group = (r[3].rsplit(" ", 1)[0], r[2])
+        worst[group] = max(worst.get(group, r), r)
+    loss_err = max(abs(mc[k] - mp[k]) / max(abs(mp[k]), 1.0) for k in mp)
+    print(f"  full width, batch {B}, f32, sgd(0.01): card {tc:.1f} ms, CPU "
+          f"{tp:.1f} ms (each recording its LeakyReLU inputs); LeakyReLU "
+          f"branches taken differently: {flips or 'none'}; the worst leaf "
+          f"of each phase at each limit, card vs CPU, of the leaf's largest "
+          f"(floor {FLOOR} of the phase's largest):", flush=True)
+    for share, e, limit, name, big, err, top in sorted(worst.values(),
+                                                       key=lambda r: r[3]):
+        print(f"    {name}: {e:.3e} (limit {limit:g}, {100 * share:.1f}% of "
+              f"it); max |cpu| {big:.3e}, max |card-cpu| {err:.3e}, phase's "
+              f"largest {top:.3e}", flush=True)
+    print(f"  losses card/CPU { {k: (mc[k], mp[k]) for k in mp} }: worst "
+          f"{loss_err:.2e} (limit {LOSS_TOL})", flush=True)
+    bad = [r for r in rows if r[0] > 1.0]
+    check(not bad, f"card vs CPU: {[(r[3], r[1], r[2]) for r in bad]}")
+    check(loss_err <= LOSS_TOL, f"card vs CPU losses: {mc} vs {mp}")
+    top = max(rows)
+    return {"worst_share_of_limit": top[0], "worst_leaf": top[3],
+            "worst_rel_err": top[1], "worst_limit": top[2],
+            "kinks": flips,
+            "by_group": {f"{r[3]} (limit {r[2]:g})": r[1]
+                         for r in worst.values()},
+            "loss_rel_err": loss_err, "card_ms": tc, "cpu_ms": tp,
+            "batch": B}
+
+
+def inf_batch(batch):
+    """``batch`` with one inf pixel, and the E_CAL sums made from it."""
+    bad = dict(batch)
+    img = np.array(batch["image"], copy=True)
+    img[(0, *(n // 2 for n in img.shape[1:4]), 0)] = np.inf
+    bad["image"] = img
+    bad["ecal"] = img.sum(axis=(1, 2, 3, 4)).astype(np.float32)
+    return bad
+
+
+def guard_phase(cfg, batch):
+    """The skip-on-nonfinite guard on the card, bf16 and fp16.  One inf
+    pixel: D on real is skipped (the D optimizer steps once, not twice),
+    the count of skipped phases is reported and the fp16 scale halves per
+    skip.  With an inf in every fake draw too, every phase is skipped and
+    the state comes back unchanged, bit for bit."""
+    import torch
+    from repro_torch.core import adversarial
+    from repro_torch.optim import optimizers as opt_lib
+    from repro_torch.substrate.precision import get_policy
+    opt = opt_lib.rmsprop(1e-4)
+    bad = inf_batch(batch)
+    res = {}
+
+    def inf_inputs(i, mb):
+        noise, e_p, theta = adversarial.draw_inputs(
+            torch.Generator(device="cuda").manual_seed(100 + i), mb,
+            cfg.latent_dim)
+        noise[0, 0] = float("inf")
+        return noise, e_p, theta
+
+    for name in ("bf16", "fp16"):
+        pol = get_policy(name)
+        state = adversarial.init_state(torch.Generator().manual_seed(3), cfg,
+                                       opt, opt, policy=pol, device="cuda")
+        s0 = float(state.loss_scale.scale)
+        before = [(k, v.clone()) for k, v in state_leaves(state)]
+        step = adversarial.make_fused_step(cfg, opt, opt, policy=pol)
+        new, m = step(state, bad, torch.Generator(device="cuda")
+                      .manual_seed(7))
+        d_steps, g_steps = int(new.d_opt["step"]), int(new.g_opt["step"])
+        skips = float(m["nonfinite_skips"])
+        scale = float(m["loss_scale"])
+        finite = all(bool(torch.isfinite(v.float()).all())
+                     for _, v in state_leaves(new))
+        print(f"  {name}, one inf pixel: nonfinite_skips={skips:g}, D "
+              f"updates {d_steps} of 2, G updates {g_steps} of 2, loss "
+              f"scale {s0:g} -> {scale:g}, state finite: {finite}",
+              flush=True)
+        check(d_steps <= 1 and skips == 4 - d_steps - g_steps,
+              f"{name}: D on real not skipped or skips miscounted "
+              f"({d_steps}, {g_steps}, {skips})")
+        check(scale == max(s0 * 0.5 ** skips, 1.0) and finite,
+              f"{name}: scale {scale} from {s0} after {skips} skips, "
+              f"finite {finite}")
+        if name == "bf16":
+            check(skips == 1, f"bf16: {skips} skips, want 1")
+        step = adversarial.make_fused_step(cfg, opt, opt, policy=pol,
+                                           sample_inputs=inf_inputs)
+        new, m = step(state, bad, torch.Generator(device="cuda")
+                      .manual_seed(7))
+        after = dict(state_leaves(new))
+        same = [k for k, v in before if k.startswith(("g_", "d_"))
+                and torch.equal(v, after[k])]
+        n_state = sum(1 for k, _ in before if k.startswith(("g_", "d_")))
+        print(f"  {name}, inf pixel and inf in every fake draw: "
+              f"nonfinite_skips={float(m['nonfinite_skips']):g}, loss scale "
+              f"{s0:g} -> {float(m['loss_scale']):g}, {len(same)} of "
+              f"{n_state} param and optimizer leaves unchanged bit for bit",
+              flush=True)
+        check(float(m["nonfinite_skips"]) == 4.0 and len(same) == n_state,
+              f"{name}: all-nonfinite step changed the state")
+        check(float(m["loss_scale"]) == max(s0 / 16, 1.0),
+              f"{name}: scale {float(m['loss_scale'])} after 4 skips")
+        res[name] = {"skips_one_pixel": skips, "scale_after": scale,
+                     "d_updates": d_steps, "g_updates": g_steps}
+    return res
+
+
+def train_phase(cfg, card):
+    """The training main path: ``Engine.fit`` over batches made before the
+    timed window, counts reset just before and read just after; then the
+    same step twice (bit for bit), the guard, and one profiled step."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.core import adversarial
+    from repro_torch.data.calo import CaloSimulator, CaloSpec
+    from repro_torch.kernels.conv3d import conv3d as conv_mod
+    from repro_torch.optim import optimizers as opt_lib
+    from repro_torch.substrate.precision import get_policy
+    from repro_torch.train import engine as engine_lib
+
+    n = TRAIN_WARMUP + TRAIN_STEPS
+    sim = CaloSimulator(CaloSpec(image_shape=cfg.image_shape), seed=21)
+    stream = sim.batches(BATCH)
+    t0 = time.perf_counter()
+    batches = [next(stream) for _ in range(n)]
+    sim_ms = 1e3 * (time.perf_counter() - t0) / n
+    print(f"  host Monte Carlo (CaloSimulator, numpy): {sim_ms:.1f} ms per "
+          f"batch of {BATCH}, {n} batches made before the timed window",
+          flush=True)
+    task = engine_lib.gan_task(cfg, opt_lib.rmsprop(1e-4),
+                               opt_lib.rmsprop(1e-4),
+                               policy=get_policy("bf16"))
+    eng = engine_lib.Engine("cuda")
+    state0 = eng.init_state(task, seed=0)
+    stamps = []
+
+    def hook(gstep, state):
+        torch.cuda.synchronize()
+        stamps.append(time.perf_counter())
+
+    torch.cuda.synchronize()
+    # the main path: counts reset just before, read just after
+    conv_mod.LAUNCHES = 0
+    conv_mod.DW_LAUNCHES = 0
+    t_start = time.perf_counter()
+    state, metrics = eng.fit(task, batches, n, seed=0, state=state0,
+                             hooks=(hook,))
+    fwd, dw = conv_mod.LAUNCHES, conv_mod.DW_LAUNCHES
+    step_ms = [1e3 * (b - a) for a, b in zip([t_start] + stamps, stamps)]
+    want_fwd, want_dw = adversarial.conv_launches_per_step(cfg)
+    m = {k: float(v) for k, v in metrics.items()}
+    timed = step_ms[TRAIN_WARMUP:]
+    med = float(np.median(timed))
+    spread = (max(timed) - min(timed)) / med
+    print(f"  {n} steps ({TRAIN_WARMUP} warm-up): step wall ms "
+          f"{[round(t, 2) for t in step_ms]}; median of {TRAIN_STEPS} "
+          f"{med:.2f} ms, spread (max-min)/median {100 * spread:.1f}%, "
+          f"{BATCH / med * 1e3:.1f} real showers consumed/s; h2d wait "
+          f"{eng.last_fit_stats['h2d_wait_ms']:.1f} ms, put "
+          f"{eng.last_fit_stats['h2d_put_ms']:.1f} ms [{card}]", flush=True)
+    print(f"  launches: conv3d_fwd {fwd} ({fwd / n:g}/step), conv3d_dw {dw} "
+          f"({dw / n:g}/step); metrics of the last step {m}", flush=True)
+    check(fwd == want_fwd * n and dw == want_dw * n,
+          f"launches {fwd}, {dw} for {n} steps (want {want_fwd}, {want_dw} "
+          "per step)")
+    check(want_fwd == 50 and want_dw == 16, f"{want_fwd}, {want_dw}")
+    check(all(math.isfinite(v) for v in m.values())
+          and m["nonfinite_skips"] == 0, f"metrics {m}")
+
+    # the same step twice from one state, one seed: bit for bit
+    step = task.make_step()
+    dev_batch = {k: torch.as_tensor(v).cuda() for k, v in batches[0].items()}
+    a, _ = step(state, dev_batch, eng.step_generator(0, n))
+    b, _ = step(state, dev_batch, eng.step_generator(0, n))
+    la, lb = state_leaves(a), state_leaves(b)
+    same = sum(1 for (_, x), (_, y) in zip(la, lb) if torch.equal(x, y))
+    print(f"  the same step twice from one state and seed: {same} of "
+          f"{len(la)} param, optimizer and loss-scale leaves bit-identical",
+          flush=True)
+    check(same == len(la), "two runs of a step differ")
+    del a, b
+
+    guard = guard_phase(cfg, batches[0])
+
+    # one profiled step
+    gen = eng.step_generator(0, n + 1)
+    step(state, dev_batch, gen)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        step(state, dev_batch, eng.step_generator(0, n + 2))
+        torch.cuda.synchronize()
+        wall = 1e3 * (time.perf_counter() - t0)
+    kernels = device_kernels(prof)
+    busy = sum(k["ms"] for k in kernels)
+    fwd_ms = sum(k["ms"] for k in kernels if "conv3d_fwd" in k["kernel"])
+    dw_ms = sum(k["ms"] for k in kernels if "conv3d_dw" in k["kernel"])
+    print(f"  one bf16 step, batch {BATCH} already on the card: wall "
+          f"{wall:.3f} ms", flush=True)
+    if kernels:
+        print(f"  device busy {busy:.3f} ms = {100 * busy / wall:.1f}% of "
+              f"wall; conv3d_fwd {fwd_ms:.3f} ms, conv3d_dw {dw_ms:.3f} ms; "
+              f"by kernel:", flush=True)
+        for k in kernels[:14]:
+            print(f"    {k['ms']:9.3f} ms  x{k['count']:<4d} {k['kernel']}",
+                  flush=True)
+    else:
+        print("  device time: not measured (the profiler saw no device "
+              "activity)", flush=True)
+    return {"steps": n, "step_ms": step_ms, "median_ms": med,
+            "spread": spread, "showers_per_s": BATCH / med * 1e3,
+            "sim_ms_per_batch": sim_ms, "fwd_launches": fwd,
+            "dw_launches": dw, "metrics": m, "guard": guard,
+            "profile": {"wall_ms": wall,
+                        "device_ms": busy if kernels else None,
+                        "conv3d_fwd_ms": fwd_ms if kernels else None,
+                        "conv3d_dw_ms": dw_ms if kernels else None,
+                        "kernels": kernels[:14]}}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -494,6 +1095,7 @@ def main() -> int:
         return 1
     sys.path.insert(0, os.path.join(ROOT, "src"))
     from repro_torch.configs import calo3dgan
+    from repro_torch.core import adversarial
     from repro_torch.kernels import build
 
     card = card_line()
@@ -513,17 +1115,71 @@ def main() -> int:
             "    " + line for line in log.strip().splitlines()), flush=True)
 
     cfg = calo3dgan.config()
-    print("kernel vs plain (TF32 off):", flush=True)
-    rows = kernel_phase(cfg)
-    print("end to end (full calo3dgan.config(), f32 policy):", flush=True)
-    e2e = e2e_phase(cfg, card)
-    print("profile (full calo3dgan.config(), f32 policy):", flush=True)
-    e2e["profile"] = profile_phase(cfg)
+    phases = {}
 
-    entry = kernel_entry(rows, e2e["launches"])
-    print(json.dumps({"layers": rows, "e2e": e2e}), flush=True)
+    def timed(name, fn, *args):
+        t = time.perf_counter()
+        out = fn(*args)
+        phases[name] = time.perf_counter() - t
+        return out
+
+    print("forward kernel vs plain (TF32 off):", flush=True)
+    rows = timed("forward", kernel_phase, cfg)
+    print("dx (forward kernel) and dw (dw kernel) vs plain (TF32 off):",
+          flush=True)
+    grad_rows = timed("gradients", grad_phase, cfg)
+    print("serving end to end (full calo3dgan.config(), f32 policy):",
+          flush=True)
+    e2e = timed("serve", e2e_phase, cfg, card)
+    print("serving profile (full calo3dgan.config(), f32 policy):",
+          flush=True)
+    e2e["profile"] = timed("serve_profile", profile_phase, cfg)
+    print("training step, card vs CPU (full calo3dgan.config()):",
+          flush=True)
+    check_step = timed("check_step", check_step_phase, cfg)
+    print(f"training main path (full calo3dgan.config(), bf16, batch "
+          f"{BATCH}, RMSprop 1e-4):", flush=True)
+    train = timed("train", train_phase, cfg, card)
+    print("phase seconds: " + ", ".join(f"{k} {v:.1f}"
+                                        for k, v in phases.items()),
+          flush=True)
+
+    counts = adversarial.conv_launches_by_layer(cfg)
+    fwd = kernel_entry(rows, e2e["launches"] + train["fwd_launches"])
+    serve = {k: fwd[k] for k in ("ms", "plain_ms", "library_ms",
+                                 "bound_ms", "bound_by")}
+    serve.update(launches=e2e["launches"],
+                 timed="one f32 bucket-128 generator pass, 4 launches")
+    fwd_train = per_step(rows + grad_rows, counts, ("fwd", "dx"))
+    fwd_train.update(steps=train["steps"], launches=train["fwd_launches"],
+                     launches_per_step=fwd_train.pop("launches"),
+                     profiled_ms=train["profile"]["conv3d_fwd_ms"],
+                     timed="one bf16 training step at batch 128, the "
+                           "per-layer fwd and dx times by launches")
+    fwd["by_path"] = {"serve": serve, "train": fwd_train}
+    dw_rows = [r for r in grad_rows if r["kind"] == "dw"]
+    dw_step = per_step(grad_rows, counts, ("dw",))
+    dw = {"name": "conv3d_dw", "route": "cuda",
+          "source": "src/repro_torch/kernels/conv3d/csrc/conv3d_dw.cu",
+          "replaces": "src/repro/kernels/conv3d/conv3d.py:292",
+          "launches": train["dw_launches"],
+          "max_abs_err": max(r["max_abs_err"] for r in dw_rows),
+          "max_err_of_largest": max(r["max_abs_err"] / r["max_abs_ref"]
+                                    for r in dw_rows),
+          "ms": dw_step["ms"], "plain_ms": dw_step["plain_ms"],
+          "bound_ms": dw_step["bound_ms"], "bound_by": dw_step["bound_by"],
+          "library_ms": dw_step["library_ms"],
+          "launches_per_step": dw_step["launches"],
+          "profiled_ms": train["profile"]["conv3d_dw_ms"],
+          "timed": "one bf16 training step at batch 128, the per-layer "
+                   "dw times by launches"}
+    os.makedirs(os.path.join(ROOT, "results"), exist_ok=True)
+    with open(os.path.join(ROOT, "results", "chip_smoke.json"), "w") as f:
+        json.dump({"card": card, "layers": rows + grad_rows, "e2e": e2e,
+                   "check_step": check_step, "train": train,
+                   "phase_s": phases}, f, indent=1)
     print(card, flush=True)
-    print(json.dumps({"kernels": [entry]}), flush=True)
+    print(json.dumps({"kernels": [fwd, dw]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -1,25 +1,65 @@
-"""Generator parameters between numpy trees and tensors.
+"""Parameter and state trees between numpy and tensors.
 
-The reference's parameters are nested dicts of arrays; handed over as
-numpy (``jax.device_get`` or a checkpoint), :func:`generator_from_numpy`
-turns them into the port's nested dict of f32 tensors with the same leaf
-names and layouts, so both packages compute the same function.
+The reference's parameters, optimizer states and train state are nested
+dicts of arrays.  Handed over as numpy (``jax.device_get`` or a
+checkpoint), :func:`tree_from_numpy` turns any such tree into tensors
+with the same leaf names, layouts and dtypes, :func:`state_from_numpy`
+builds the port's ``GANState`` from the reference's fields, and
+:func:`generator_from_numpy` carries a generator over as f32 for serving.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
+from repro_torch.substrate.precision import tree_map
+
+
+def tree_from_numpy(tree, device="cuda"):
+    """Nested dict of arrays -> nested dict of tensors on ``device``, each
+    with its array's dtype (``None`` leaves stay ``None``)."""
+    if isinstance(tree, dict):
+        return {k: tree_from_numpy(v, device) for k, v in tree.items()}
+    if tree is None:
+        return None
+    return torch.from_numpy(np.array(tree)).to(device)
+
+
+def tree_to_numpy(tree):
+    """Nested dict of tensors -> nested dict of numpy arrays."""
+    if isinstance(tree, dict):
+        return {k: tree_to_numpy(v) for k, v in tree.items()}
+    if tree is None:
+        return None
+    return tree.detach().cpu().numpy()
+
+
+def state_from_numpy(g_params, d_params, g_opt, d_opt, step, loss_scale=None,
+                     device="cuda"):
+    """The port's ``GANState`` from the reference's fields as numpy trees;
+    ``loss_scale`` is ``(scale, good_steps)`` or None."""
+    from repro_torch.core.adversarial import GANState
+    from repro_torch.substrate.precision import LossScaleState
+    ls = None
+    if loss_scale is not None:
+        scale, good = loss_scale
+        ls = LossScaleState(
+            torch.tensor(float(np.asarray(scale)), dtype=torch.float32,
+                         device=device),
+            torch.tensor(int(np.asarray(good)), dtype=torch.int32,
+                         device=device))
+    return GANState(
+        tree_from_numpy(g_params, device), tree_from_numpy(d_params, device),
+        tree_from_numpy(g_opt, device), tree_from_numpy(d_opt, device),
+        torch.tensor(int(np.asarray(step)), dtype=torch.int32, device=device),
+        ls)
+
 
 def generator_from_numpy(tree, device="cuda") -> dict:
     """Nested dict of arrays -> nested dict of f32 tensors on ``device``."""
-    if isinstance(tree, dict):
-        return {k: generator_from_numpy(v, device) for k, v in tree.items()}
-    return torch.as_tensor(np.array(tree, dtype=np.float32), device=device)
+    return tree_map(lambda t: t.float(), tree_from_numpy(tree, device))
 
 
 def generator_to_numpy(params) -> dict:
     """Nested dict of tensors -> nested dict of f32 numpy arrays."""
-    if isinstance(params, dict):
-        return {k: generator_to_numpy(v) for k, v in params.items()}
-    return params.detach().to("cpu", torch.float32).numpy()
+    return tree_to_numpy(tree_map(lambda t: t.float(), params))

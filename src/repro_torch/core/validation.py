@@ -1,8 +1,9 @@
 """Physics validation: calorimeter energy response, GAN vs Monte Carlo.
 
-Host-side numpy comparisons (copies of the reference's) plus the serving
-gate's accumulators: :func:`profile_sums` runs on the device and the gate
-drains its sums once per window into :func:`gate_report`.
+Host-side numpy comparisons (copies of the reference's, with the report
+printed after training) plus the serving gate's accumulators:
+:func:`profile_sums` runs on the device and the gate drains its sums once
+per window into :func:`gate_report`.
 """
 from __future__ import annotations
 
@@ -40,6 +41,25 @@ def edge_ratio_error(p: np.ndarray, q: np.ndarray, edge_cells: int = 5) -> float
     pe = p[:edge_cells].sum() + p[-edge_cells:].sum()
     qe = q[:edge_cells].sum() + q[-edge_cells:].sum()
     return float(abs(pe - qe) / max(qe, 1e-12))
+
+
+def validation_report(gan_images, mc_images, gan_ep, mc_ep) -> dict:
+    """Profile divergences and energy response of generated showers
+    against Monte Carlo (host numpy), as printed after training."""
+    rep = {}
+    for name, fn in (("longitudinal", longitudinal_profile),
+                     ("transverse_x", lambda im: transverse_profile(im, "x")),
+                     ("transverse_y", lambda im: transverse_profile(im, "y"))):
+        pg, pm = fn(gan_images), fn(mc_images)
+        rep[f"{name}_kl"] = profile_divergence(pg, pm)
+        rep[f"{name}_edge_err"] = edge_ratio_error(pg, pm)
+    rg = energy_response(gan_images, gan_ep)
+    rm = energy_response(mc_images, mc_ep)
+    rep["response_mean_gan"] = float(rg.mean())
+    rep["response_mean_mc"] = float(rm.mean())
+    rep["response_rel_err"] = float(abs(rg.mean() - rm.mean())
+                                    / max(rm.mean(), 1e-12))
+    return rep
 
 
 def profile_sums(images, e_p, mask=None) -> dict:

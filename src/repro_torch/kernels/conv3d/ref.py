@@ -1,4 +1,4 @@
-"""Plain PyTorch versions of the conv3d kernel and its entry points.
+"""Plain PyTorch versions of the conv3d kernels and their entry points.
 
 :func:`conv_core_ref` computes what ``csrc/conv3d_fwd.cu`` computes, the
 straightforward way: explicit zero-insertion dilation, ``F.pad`` with the
@@ -7,15 +7,20 @@ bias and activation.  For bf16/fp16 it takes the operands rounded to the
 compute dtype, computes in f32 and rounds once at the end, as the kernel
 does.  (The reference's Pallas interpret mode upcasts the activations the
 same way but feeds the weights and bias in f32; on the TPU they are
-rounded to the compute dtype first, as here.)  The CPU path and the tests
-use it; on the card it is what the kernel is held against.
+rounded to the compute dtype first, as here.)  :func:`conv_dw_core_ref`
+computes what ``csrc/conv3d_dw.cu`` computes: for each tap, the strided
+slice of the same dilated, padded input contracted with the cotangent
+over every position, in f32.  The CPU path and the tests use them; on the
+card they are what the kernels are held against.
 """
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
 
-from repro_torch.kernels.conv3d.conv3d import same_pads, transpose_pads
+from repro_torch.kernels.conv3d.conv3d import (_flip_t, dx_pads, same_pads,
+                                               transpose_dx_pads,
+                                               transpose_pads)
 
 
 def _act_ref(y, activation: str, slope: float):
@@ -28,12 +33,9 @@ def _act_ref(y, activation: str, slope: float):
     return y
 
 
-def conv_core_ref(x, w, b=None, *, stride: int, pads, in_dilation: int = 1,
-                  activation: str = "none", slope: float = 0.2):
-    """Plain version of `conv3d.conv_core` (same arguments, same result)."""
-    dtype = x.dtype
-    xf = x.float()
-    wf = w.to(dtype).float()
+def _dilate_pad(xf, pads, in_dilation: int):
+    """``xf`` (N, D, H, W, C) dilated by ``in_dilation`` and padded by
+    ``pads`` (negative crops), as channels-first (N, C, D', H', W')."""
     if in_dilation > 1:
         s = in_dilation
         N, D, H, W, C = xf.shape
@@ -42,8 +44,19 @@ def conv_core_ref(x, w, b=None, *, stride: int, pads, in_dilation: int = 1,
         xd[:, ::s, ::s, ::s] = xf
         xf = xd
     (dl, dh), (hl, hh), (wl, wh) = pads
-    xc = F.pad(xf.permute(0, 4, 1, 2, 3), (wl, wh, hl, hh, dl, dh))
-    y = F.conv3d(xc, wf.permute(4, 3, 0, 1, 2), stride=stride)
+    # contiguous channels-first: the CPU conv is ~100x slower on the
+    # channels-last strides a permute leaves
+    return F.pad(xf.permute(0, 4, 1, 2, 3).contiguous(),
+                 (wl, wh, hl, hh, dl, dh))
+
+
+def conv_core_ref(x, w, b=None, *, stride: int, pads, in_dilation: int = 1,
+                  activation: str = "none", slope: float = 0.2):
+    """Plain version of `conv3d.conv_core` (same arguments, same result)."""
+    dtype = x.dtype
+    wf = w.to(dtype).float()
+    xc = _dilate_pad(x.float(), pads, in_dilation)
+    y = F.conv3d(xc, wf.permute(4, 3, 0, 1, 2).contiguous(), stride=stride)
     y = y.permute(0, 2, 3, 4, 1)
     if b is not None:
         y = y + b.to(dtype).float()
@@ -66,3 +79,52 @@ def conv3d_transpose_bias_act_ref(x, w, b, stride: int = 2,
     pads = tuple(transpose_pads(k, stride) for k in w.shape[:3])
     return conv_core_ref(x, w, b, stride=1, pads=pads, in_dilation=stride,
                          activation=activation, slope=slope)
+
+
+def conv_dw_core_ref(x, g, kdims, *, stride: int, pads, in_dilation: int = 1):
+    """Plain version of `conv3d.conv_dw_core`: dw[kd, kh, kw] = the tap's
+    strided patches of the dilated, padded input, transposed, times g,
+    summed over every output position in f32 (g is cast to ``x.dtype``
+    first) -> f32 (KD, KH, KW, Ci, Co)."""
+    xp = _dilate_pad(x.float(), pads, in_dilation)       # (N, Ci, D', H', W')
+    gf = g.to(x.dtype).float()
+    N, OD, OH, OW, Co = gf.shape
+    g2 = gf.reshape(-1, Co)
+    s = stride
+    taps = []
+    for kd in range(kdims[0]):
+        for kh in range(kdims[1]):
+            for kw in range(kdims[2]):
+                patch = xp[:, :, kd:kd + (OD - 1) * s + 1:s,
+                           kh:kh + (OH - 1) * s + 1:s,
+                           kw:kw + (OW - 1) * s + 1:s]
+                taps.append(patch.permute(1, 0, 2, 3, 4).reshape(
+                    xp.shape[1], -1) @ g2)                # (Ci, Co)
+    return torch.stack(taps).reshape(*kdims, xp.shape[1], Co)
+
+
+def conv3d_dx(g, w, stride: int, in_spatial):
+    """dx of the SAME stride-s conv, plain (`conv3d.conv3d_dx`)."""
+    return conv_core_ref(g, _flip_t(w), None, stride=1,
+                         pads=dx_pads(in_spatial, w.shape[:3], stride),
+                         in_dilation=stride)
+
+
+def conv3d_dw(x, g, kdims, stride: int):
+    """dw of the SAME stride-s conv, plain (`conv3d.conv3d_dw`)."""
+    pads = tuple(same_pads(L, k, stride)[:2]
+                 for L, k in zip(x.shape[1:4], kdims))
+    return conv_dw_core_ref(x, g, kdims, stride=stride, pads=pads)
+
+
+def conv3d_transpose_dx(g, w, stride: int):
+    """dx of the SAME transposed conv, plain (`conv3d.conv3d_transpose_dx`)."""
+    return conv_core_ref(g, _flip_t(w), None, stride=stride,
+                         pads=transpose_dx_pads(w.shape[:3], stride))
+
+
+def conv3d_transpose_dw(x, g, kdims, stride: int):
+    """dw of the SAME transposed conv, plain (`conv3d.conv3d_transpose_dw`)."""
+    pads = tuple(transpose_pads(k, stride) for k in kdims)
+    return conv_dw_core_ref(x, g, kdims, stride=1, pads=pads,
+                            in_dilation=stride)

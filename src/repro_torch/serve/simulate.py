@@ -38,20 +38,12 @@ import torch
 from repro_torch.core import gan, validation
 from repro_torch.serve.scheduler import Rejection, Scheduler, SchedulerConfig
 from repro_torch.substrate.precision import get_policy
-
-_MASK64 = (1 << 64) - 1
-
-
-def _splitmix64(z: int) -> int:
-    z = (z + 0x9E3779B97F4A7C15) & _MASK64
-    z = ((z ^ (z >> 30)) * 0xBF58476D1CE4E5B9) & _MASK64
-    z = ((z ^ (z >> 27)) * 0x94D049BB133111EB) & _MASK64
-    return z ^ (z >> 31)
+from repro_torch.substrate.rng import mix_seed
 
 
 def event_seed(seed: int, ev_idx: int) -> int:
     """The 64-bit generator seed of event ``ev_idx`` of a request."""
-    return _splitmix64(_splitmix64(int(seed) & _MASK64) ^ int(ev_idx))
+    return mix_seed(seed, ev_idx)
 
 
 def event_noise(seeds, ev_idx, latent: int, device, dtype) -> torch.Tensor:

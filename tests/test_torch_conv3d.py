@@ -1,6 +1,6 @@
 """The port's conv3d entry points (their plain path on the CPU) against the
 JAX package's fused Pallas kernels run in interpret mode, plus the padding
-geometry, the launch counter and the forward-only guard.
+geometry, the launch counter and the once-differentiable guard.
 
 Inputs come from a numpy seed and go through both packages.  Tolerances:
 f32 1e-5 (summation order only); bf16 2e-2 (the two packages round at
@@ -130,12 +130,17 @@ def test_cpu_tensors_launch_no_kernel():
 
 @pytest.mark.parametrize("which", ["x", "w", "b"])
 def test_requires_grad_raises(which):
+    """The ops have a backward now (test_torch_train.py); that backward is
+    kernels with no backward of their own, so asking for a second
+    derivative through it raises instead of returning a wrong one."""
     x, w, b = (torch.from_numpy(a) for a in _inputs(6, (1, 3, 3, 3, 2), 2))
-    {"x": x, "w": w, "b": b}[which].requires_grad_(True)
-    with pytest.raises(NotImplementedError, match="backward"):
-        ops.conv3d_bias_act(x, w, b, 1, "none")
-    with pytest.raises(NotImplementedError, match="backward"):
-        ops.conv3d_transpose_bias_act(x, w, b, 2, "none")
+    t = {"x": x, "w": w, "b": b}[which].requires_grad_(True)
+    for fn, stride in ((ops.conv3d_bias_act, 1),
+                       (ops.conv3d_transpose_bias_act, 2)):
+        y = fn(x, w, b, stride, "softplus")
+        (g,) = torch.autograd.grad(y.square().sum(), t, create_graph=True)
+        with pytest.raises(RuntimeError, match="once_differentiable"):
+            g.sum().backward()
 
 
 def test_unknown_activation_and_device_raise():
@@ -159,6 +164,7 @@ def _chip_smoke():
     (False, (1, 8, 8, 8, 4), 8, 1, "none"),
     (False, (2, 6, 5, 7, 8), 1, 1, "softplus"),
     (False, (1, 7, 9, 5, 1), 4, 2, "none"),          # symmetric SAME pads
+    (False, (2, 6, 4, 7, 3), 2, 2, "leaky_relu"),    # asymmetric SAME pads
     (True, (1, 4, 4, 4, 4), 8, 2, "none"),
     (True, (2, 3, 5, 3, 2), 3, 2, "leaky_relu"),
 ])
@@ -202,15 +208,16 @@ def test_chip_smoke_counts_useful_macs():
 def test_chip_smoke_kernel_bound_is_the_sum_of_launch_bounds():
     """The kernels line's bound for a generator pass is the sum of its
     launches' own bounds, each the larger of operations and bytes; the
-    bf16 and discriminator rows stay out of it."""
+    bf16, discriminator and gradient rows stay out of it."""
     cs = _chip_smoke()
     b_ops, by_ops = cs.layer_bound(67e9, 1e6, "float32")      # 2 ms vs 0.3 us
     b_bytes, by_bytes = cs.layer_bound(1, 3.35e9, "float32")  # 1 ms of bytes
     assert (by_ops, by_bytes) == ("operations", "bytes")
     np.testing.assert_allclose([b_ops, b_bytes], [2.0, 1.0], rtol=1e-12)
 
-    def row(layer, dtype, bound_ms, bound_by, ms=1.0):
-        return {"layer": layer, "dtype": dtype, "bound_ms": bound_ms,
+    def row(layer, dtype, bound_ms, bound_by, ms=1.0, kind="fwd"):
+        return {"layer": layer, "kind": kind, "dtype": dtype,
+                "bound_ms": bound_ms,
                 "bound_by": bound_by, "ms": ms, "plain_ms": 2 * ms,
                 "library_ms": 3 * ms, "max_abs_err": ms / 10}
 
@@ -218,7 +225,8 @@ def test_chip_smoke_kernel_bound_is_the_sum_of_launch_bounds():
             row("gen_out", "float32", 1.5, "bytes"),
             row("gen_up1", "float32", 0.5, "operations", ms=4.0),
             row("gen_up0", "bfloat16", 9.0, "bytes", ms=9.0),
-            row("disc_conv0", "float32", 9.0, "bytes", ms=9.0)]
+            row("disc_conv0", "float32", 9.0, "bytes", ms=9.0),
+            row("gen_up0", "float32", 9.0, "bytes", ms=9.0, kind="dw")]
     e = cs.kernel_entry(rows, launches=12)
     assert e["bound_ms"] == 4.0 and e["bound_by"] == "operations"
     assert (e["ms"], e["plain_ms"], e["library_ms"]) == (6.0, 12.0, 18.0)
@@ -233,3 +241,94 @@ def test_chip_smoke_nearest_rank():
     assert cs.nearest_rank(vals, 1.0) == 200
     assert cs.request_sizes(10, seed=0)[:7] == list(cs.CHECK_SIZES)
     assert all(1 <= s <= 96 for s in cs.request_sizes(50, 1, False))
+
+
+@pytest.mark.parametrize("transpose,xs,co,stride", [
+    (False, (2, 7, 6, 5, 3), 4, 2),        # asymmetric SAME pads (6 -> 3)
+    (False, (1, 5, 5, 5, 1), 3, 2),        # Ci=1
+    (False, (2, 6, 5, 7, 8), 1, 1),        # Co=1
+    (True, (1, 4, 3, 4, 4), 5, 2),
+    (True, (2, 3, 5, 3, 2), 3, 2),
+])
+def test_chip_smoke_gradient_yardsticks_are_the_same_functions(
+        transpose, xs, co, stride):
+    """The library calls chip_smoke.py times beside the dx and dw kernels
+    (``torch.nn.grad.conv3d_input`` / ``conv3d_weight``, or ``F.conv3d``
+    for the transposed conv's dx) compute the plain dx and dw."""
+    x, w, _ = (torch.from_numpy(a) for a in _inputs(13, xs, co))
+    cs = _chip_smoke()
+    fwd = (ref.conv3d_transpose_bias_act_ref if transpose
+           else ref.conv3d_bias_act_ref)
+    g = torch.randn(fwd(x, w, None, stride).shape)
+    if transpose:
+        want_dx = ref.conv3d_transpose_dx(g, w, stride)
+        want_dw = ref.conv3d_transpose_dw(x, g, w.shape[:3], stride)
+    else:
+        want_dx = ref.conv3d_dx(g, w, stride, xs[1:4])
+        want_dw = ref.conv3d_dw(x, g, w.shape[:3], stride)
+    got_dx = cs.library_dx(xs, w, g, stride=stride, transpose=transpose)
+    inp, gout = cs.library_dw_operands(x, g, stride=stride,
+                                       transpose=transpose)
+    got_dw = cs.library_dw(inp, gout, tuple(w.shape), stride=stride,
+                           transpose=transpose)
+    np.testing.assert_allclose(got_dx.numpy(), want_dx.numpy(), atol=1e-5,
+                               rtol=1e-5)
+    np.testing.assert_allclose(got_dw.numpy(), want_dw.numpy(), atol=1e-4,
+                               rtol=1e-5)
+
+
+def test_chip_smoke_step_launches_and_per_step_sums():
+    """The per-layer launch counts of a training step name the smoke's
+    eight layers and add up to the step's 50 forward-kernel and 16 dw
+    launches, and the per-step sums weight each layer's times by them."""
+    from repro_torch.configs import calo3dgan
+    from repro_torch.core.adversarial import (conv_launches_by_layer,
+                                              conv_launches_per_step)
+    cs = _chip_smoke()
+    cfg = calo3dgan.config()
+    counts = conv_launches_by_layer(cfg)
+    assert {layer for layer, _ in counts} == {
+        g[0] for g in cs.layer_geometries(cfg)}
+    assert conv_launches_per_step(cfg) == (50, 16)
+    assert conv_launches_per_step(cfg, 2) == (100, 32)
+    assert len(cs.layer_geometries(cfg)) == 8
+    rows = [{"layer": "gen_up0", "kind": "dw", "dtype": "bfloat16",
+             "ms": 1.0, "plain_ms": 2.0, "library_ms": 3.0, "bound_ms": 0.5,
+             "bound_by": "bytes"},
+            {"layer": "disc_conv0", "kind": "dx", "dtype": "bfloat16",
+             "ms": 10.0, "plain_ms": 0.0, "library_ms": 0.0,
+             "bound_ms": 0.1, "bound_by": "operations"},
+            {"layer": "disc_conv1", "kind": "dw", "dtype": "float32",
+             "ms": 100.0, "plain_ms": 0.0, "library_ms": 0.0,
+             "bound_ms": 9.0, "bound_by": "operations"}]
+    tot = cs.per_step(rows, counts, ("dw",))
+    assert (tot["ms"], tot["plain_ms"], tot["library_ms"], tot["launches"]) \
+        == (2.0, 4.0, 6.0, 2)
+    assert tot["bound_by"] == "bytes"
+    tot = cs.per_step(rows, counts, ("fwd", "dx"))
+    assert tot["ms"] == 20.0 and tot["bound_by"] == "operations"
+
+
+def test_chip_smoke_kink_leaves():
+    """A LeakyReLU that took another branch moves the layers upstream of
+    it in that phase's backward: none for D on fake's generator calls (no
+    gradient), every G layer for a frozen D's call in a G phase."""
+    from repro_torch.configs import calo3dgan
+    cs = _chip_smoke()
+    cfg = calo3dgan.config()
+    assert cs.kink_leaves(cfg, 0, [2]) == {"conv0", "conv1", "conv2"}
+    assert cs.kink_leaves(cfg, 1, [0, 3]) == set()
+    assert cs.kink_leaves(cfg, 1, [4]) == {"conv0"}
+    assert cs.kink_leaves(cfg, 2, [0]) == {"fc"}
+    assert cs.kink_leaves(cfg, 3, [3]) == {"fc", "up0", "up1", "up2"}
+    assert cs.kink_leaves(cfg, 2, [7]) == {"fc", "up0", "up1", "up2", "out"}
+    assert cs.kink_leaves(cfg, 3, []) == set()
+
+
+def test_chip_smoke_inf_batch():
+    cs = _chip_smoke()
+    img = np.ones((2, 51, 51, 25, 1), np.float32)
+    bad = cs.inf_batch({"image": img, "ecal": np.zeros(2, np.float32)})
+    assert np.isinf(bad["image"]).sum() == 1 and np.isfinite(img).all()
+    assert np.isinf(bad["image"][0, 25, 25, 12, 0])
+    assert np.isinf(bad["ecal"][0]) and bad["ecal"][1] == 51 * 51 * 25

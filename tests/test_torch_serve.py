@@ -237,6 +237,7 @@ print(json.dumps({"modules": names, "bad": bad}))
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
                          text=True, check=True, timeout=300, env=env)
     res = json.loads(out.stdout.strip().splitlines()[-1])
-    assert "repro_torch.serve.simulate" in res["modules"]
-    assert "repro_torch.kernels.build" in res["modules"]
+    for mod in ("serve.simulate", "kernels.build", "core.adversarial",
+                "optim.optimizers", "train.engine", "launch.train"):
+        assert f"repro_torch.{mod}" in res["modules"]
     assert res["bad"] == []
