@@ -3,7 +3,8 @@
 Run from the root of a checkout:  python3 chip_smoke.py
 
 1. prints the card's name and power limit (nvidia-smi);
-2. builds the port's CUDA kernels (``conv3d_fwd``, ``conv3d_dw``) from
+2. builds the port's CUDA kernels (``conv3d_fwd``, ``conv3d_dw``,
+   ``flash_chunk``, ``flash_decode``) from
    ``src/repro_torch/kernels/*/csrc`` into ``build/kernels/``, one nvcc
    per source, all at once, and prints the build time;
 3. forward: holds the conv3d kernel, through the public entry points
@@ -15,6 +16,11 @@ Run from the root of a checkout:  python3 chip_smoke.py
    kernel on the cotangent) and ``conv3d_*_dw`` (the dw kernel) against
    ``ref.conv3d_*_dx`` / ``ref.conv3d_*_dw``, timed beside the library's
    ``torch.nn.grad.conv3d_input`` / ``conv3d_weight`` (or ``F.conv3d``);
+   attention: ``flash_attention_chunk`` and ``flash_decode`` against
+   their plain versions at the LM path's shapes (8 slots, a 1024-position
+   cache, chunks of 128, qwen2-1.5b heads) in f32 and bf16 on N(0, 1)
+   inputs, timed beside one ``scaled_dot_product_attention`` call, and
+   the decode kernel's device time by split count;
 5. serving: a window of full-width requests through ``SimulateEngine``
    (the serving main path: launch counts reset just before, read just
    after) with its checks (exact event counts, finite non-negative
@@ -30,7 +36,17 @@ Run from the root of a checkout:  python3 chip_smoke.py
    just before, read just after: exactly 50 ``conv3d_fwd`` and 16
    ``conv3d_dw`` launches per step); the same step twice, bit for bit;
    the skip-on-nonfinite guard under bf16 and fp16; one profiled step;
-7. writes every number to ``results/chip_smoke.json``, prints the
+7. LM serving: full-width qwen2-1.5b from one seed, one chunk prefill
+   and 4 decodes on the card against the CPU's plain route (logits and
+   live cache), the same rows rolled one place over fresh cache noise
+   (bit for bit), and the same at sharpened attention with the depth cut
+   to 4 layers; then the LM main path: 32 requests (prompts 64-512, 32
+   new tokens) through ``ServeEngine`` with 8 slots (counts reset just
+   before, read just after: exactly 28 ``flash_chunk`` launches per
+   prefill launch and 28 ``flash_decode`` launches per decode step), two
+   more windows for the spread of generated tok/s, one bf16 window and
+   one profiled decode step;
+8. writes every number to ``results/chip_smoke.json``, prints the
    kernels' JSON line, the card line again, and as its last line
    ``{"ok": true, "device": {...}}``.
 
@@ -39,6 +55,7 @@ line.  It needs a CUDA card and the repository's ``src/`` beside it.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import math
 import os
@@ -74,6 +91,18 @@ CHECK_BATCH = 8                   # card-vs-CPU step: full width, small batch
 # no relative bound can take, and FLOOR * GRAD_TOL = 1e-9 of the phase's
 # largest is a fraction of one ulp of it.
 GRAD_TOL, KINK_TOL, KINK_NEAR, LOSS_TOL, FLOOR = 1e-4, 1e-2, 1e-5, 1e-5, 1e-5
+# LM serving (full qwen2-1.5b): 8 slots, a 1024-position cache, prefill
+# chunks of 128; windows of 32 requests (prompts 64-512, 32 new tokens)
+LM_SLOTS, LM_MAX_LEN, LM_CHUNK = 8, 1024, 128
+LM_REQUESTS, LM_NEW, LM_WINDOWS = 32, 32, 3
+# attention kernel vs plain (atol, rtol): f32 sums in another order; bf16
+# one rounding of the same f32 result to bf16
+TOL_ATTN = {"float32": (1e-5, 0.0), "bfloat16": (1e-2, 1e-2)}
+# LM card vs CPU: logits and live cache, of their largest magnitude
+LM_TOL = 1e-4
+# the sharp-attention check: wq and wk scaled by LM_SHARP, depth cut to
+# LM_SHARP_LAYERS of the 28 layers (the CPU side runs it too)
+LM_SHARP, LM_SHARP_LAYERS = 4.0, 4
 
 
 def check(cond, msg):
@@ -1087,6 +1116,517 @@ def train_phase(cfg, card):
                         "kernels": kernels[:14]}}
 
 
+# ---------------------------------------------------------------------------
+# LM serving: the attention kernels, the model card vs CPU, the engine
+# ---------------------------------------------------------------------------
+
+
+def attention_work(kind, q_shape, kv_shape, kv_len, q_offset=None, window=0):
+    """(visible (query row, key) pairs per head, live K/V positions) of one
+    serving attention call on these lengths: what the call must read and
+    compute.  ``kind`` "decode": q (B, 1, H, D), the query at kv_len - 1;
+    "chunk": q (B, C, H, D), row i at q_offset + i.  A row that sees no
+    key costs nothing."""
+    kv_len = np.minimum(np.asarray(kv_len, np.int64), kv_shape[1])
+    if kind == "decode":
+        lo = np.maximum(kv_len - window, 0) if window else np.zeros_like(kv_len)
+        seen = kv_len - lo
+        return int(seen.sum()), int(seen.sum())
+    C = q_shape[1]
+    qpos = np.asarray(q_offset, np.int64)[:, None] + np.arange(C)[None]
+    hi = np.minimum(kv_len[:, None], qpos + 1)
+    lo = np.maximum(qpos - window + 1, 0) if window else np.zeros_like(qpos)
+    pairs = int(np.maximum(hi - lo, 0).sum())
+    # K/V positions some row of the chunk sees: [min lo, max hi) per row
+    span = np.maximum(hi.max(axis=1) - lo.min(axis=1), 0)
+    return pairs, int(span.sum())
+
+
+def attention_bound(kind, q_shape, kv_shape, kv_len, dname, q_offset=None,
+                    window=0):
+    """(bound ms, "bytes" | "operations", bytes, flops) of one serving
+    attention call: q read and the output written once, K and V of the
+    live positions read once (per KV head), and 4 * D flops per visible
+    (query head, key) pair, against HBM's rate and the peak of the
+    call's dtype."""
+    B, S, H, D = q_shape
+    KH = kv_shape[2]
+    esize = 4 if dname == "float32" else 2
+    pairs, live = attention_work(kind, q_shape, kv_shape, kv_len, q_offset,
+                                 window)
+    nbytes = (2 * B * S * H * D + 2 * live * KH * D) * esize
+    flops = 4 * D * H * pairs
+    bound, by = layer_bound(flops / 2, nbytes, dname)
+    return bound, by, nbytes, flops
+
+
+def lm_launches_ok(counts, n_layers):
+    """True when the main path's kernel counts are exactly n_layers per
+    prefill launch (flash_chunk) and per decode step (flash_decode), both
+    non-zero."""
+    return (counts["prefill_launches"] > 0 and counts["decode_steps"] > 0
+            and counts["flash_chunk"] == n_layers * counts["prefill_launches"]
+            and counts["flash_decode"] == n_layers * counts["decode_steps"])
+
+
+def sdpa_call(q, k, v, mask):
+    """The yardstick: one ``scaled_dot_product_attention`` call on (B, H,
+    S, D) views with a boolean (B, 1, S, T) mask, GQA by the library
+    (timed only; the port never calls it)."""
+    import torch.nn.functional as F
+    return F.scaled_dot_product_attention(q, k, v, attn_mask=mask,
+                                          enable_gqa=True)
+
+
+def attention_masks(kind, B, S, T, kv_len, q_offset, device):
+    """(B, 1, S, T) bool mask of the serving call (no window)."""
+    import torch
+    kpos = torch.arange(T, device=device)
+    kvl = kv_len.long()[:, None, None]
+    if kind == "decode":
+        qpos = (kv_len.long() - 1)[:, None]
+    else:
+        qpos = q_offset.long()[:, None] + torch.arange(S, device=device)
+    return ((kpos[None, None] < kvl) & (kpos[None, None] <= qpos[:, :, None])
+            )[:, None]
+
+
+def attention_phase(cfg):
+    """Both serving attention kernels against their plain versions at the
+    LM main path's shapes (8 slots, a 1024-position cache, chunks of 128),
+    in f32 and bf16, N(0, 1) inputs (a peaked softmax: a wrong mask
+    shows); kernel, plain and SDPA times with each call's bound."""
+    import torch
+    from repro_torch.kernels.flash_attention import decode as dec_mod
+    from repro_torch.kernels.flash_attention import flash_attention as fa_mod
+    from repro_torch.kernels.flash_attention import ref
+    B, T, C = LM_SLOTS, LM_MAX_LEN, LM_CHUNK
+    H, KH, D = cfg.n_heads, cfg.n_kv_heads, cfg.d_head
+    gen = torch.Generator(device="cuda").manual_seed(21)
+    rng = np.random.default_rng(21)
+    dec_len = torch.tensor(rng.integers(64, T + 1, B), dtype=torch.int32,
+                           device="cuda")
+    off = torch.tensor([0, 128, 256, 384, 0, 512, 0, 896], dtype=torch.int32,
+                       device="cuda")
+    lens = torch.tensor([128, 128, 100, 128, 64, 128, 0, 128],
+                        dtype=torch.int32, device="cuda")
+    chunk_len = torch.where(lens > 0, off + lens, torch.zeros_like(lens))
+    rows = []
+    for dtype in (torch.float32, torch.bfloat16):
+        dname = str(dtype).replace("torch.", "")
+        k = torch.randn((B, T, KH, D), generator=gen, device="cuda").to(dtype)
+        v = torch.randn((B, T, KH, D), generator=gen, device="cuda").to(dtype)
+        for kind in ("flash_chunk", "flash_decode"):
+            S = C if kind == "flash_chunk" else 1
+            q = torch.randn((B, S, H, D), generator=gen,
+                            device="cuda").to(dtype)
+            if kind == "flash_chunk":
+                kvl, qoff = chunk_len, off
+                kern = lambda: fa_mod.flash_attention_chunk(q, k, v, qoff, kvl)
+                plain = lambda: ref.flash_chunk_ref(q, k, v, qoff, kvl)
+            else:
+                kvl, qoff = dec_len, None
+                sched = dec_mod.decode_schedule(T, D)
+                kern = lambda: dec_mod.flash_decode(q, k, v, kvl)
+                plain = lambda: ref.flash_decode_ref(
+                    q, k, v, kvl, block_kv=sched[0], num_splits=sched[1])
+            mask = attention_masks("chunk" if S > 1 else "decode", B, S, T,
+                                   kvl, qoff, "cuda")
+            qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+            lib = lambda: sdpa_call(qt, kt, vt, mask)
+            yk, yp = kern(), plain()
+            yl = lib().transpose(1, 2)
+            torch.cuda.synchronize()
+            atol, rtol = TOL_ATTN[dname]
+            diff = (yk.float() - yp.float()).abs()
+            max_abs = float(diff.max())
+            ok = bool((diff <= atol + rtol * yp.float().abs()).all())
+            live = kvl > 0
+            zero_ok = bool((yk[~live] == 0).all())
+            lib_err = float((yl[live].float() - yp[live].float()).abs().max())
+            n0 = (fa_mod.LAUNCHES, dec_mod.LAUNCHES)
+            ms_k, ms_p, ms_l = cuda_ms(kern), cuda_ms(plain), cuda_ms(lib)
+            # launches made to compare and time are not main-path launches
+            fa_mod.LAUNCHES, dec_mod.LAUNCHES = n0
+            bound, by, nbytes, flops = attention_bound(
+                "chunk" if S > 1 else "decode", tuple(q.shape),
+                tuple(k.shape), kvl.cpu().numpy(), dname,
+                None if qoff is None else qoff.cpu().numpy())
+            rows.append({"kernel": kind, "dtype": dname, "q": list(q.shape),
+                         "kv": list(k.shape), "kv_len": kvl.tolist(),
+                         "q_offset": None if qoff is None else qoff.tolist(),
+                         "max_abs_err": max_abs, "atol": atol, "rtol": rtol,
+                         "sdpa_vs_plain_live": lib_err, "ms": ms_k,
+                         "plain_ms": ms_p, "library_ms": ms_l,
+                         "bound_ms": bound, "bound_by": by,
+                         "mbytes": nbytes / 1e6, "gflop": flops / 1e9})
+            print(f"  {kind:12s} {dname:8s} max_abs={max_abs:.3e} (atol "
+                  f"{atol}, rtol {rtol}); rows with no key exact 0: "
+                  f"{zero_ok}; kernel_ms={ms_k:.4f} plain_ms={ms_p:.4f} "
+                  f"sdpa_ms={ms_l:.4f} bound_ms={bound:.4f} ({by}); SDPA "
+                  f"vs plain on live rows {lib_err:.2e}", flush=True)
+            check(ok, f"{kind} {dname}: kernel disagrees with the plain "
+                      f"version (max abs {max_abs})")
+            check(zero_ok, f"{kind} {dname}: a row with no key is not 0")
+            check(lib_err <= 10 * atol + 0.05 * (dname == "bfloat16"),
+                  f"{kind} {dname}: SDPA is not the same function "
+                  f"({lib_err})")
+            del yk, yp, yl
+    return rows
+
+
+def decode_split_phase(cfg):
+    """Device time of flash_decode at the path's shapes by split count
+    (tiles of 64 positions), beside the count the port's rule picks."""
+    import torch
+    from repro_torch.kernels.flash_attention import decode as dec_mod
+    B, T = LM_SLOTS, LM_MAX_LEN
+    H, KH, D = cfg.n_heads, cfg.n_kv_heads, cfg.d_head
+    gen = torch.Generator(device="cuda").manual_seed(22)
+    kvl = torch.tensor(np.random.default_rng(22).integers(64, T + 1, B),
+                       dtype=torch.int32, device="cuda")
+    out = {}
+    n0 = dec_mod.LAUNCHES
+    for dtype in (torch.float32, torch.bfloat16):
+        dname = str(dtype).replace("torch.", "")
+        q = torch.randn((B, 1, H, D), generator=gen, device="cuda").to(dtype)
+        k = torch.randn((B, T, KH, D), generator=gen, device="cuda").to(dtype)
+        v = torch.randn((B, T, KH, D), generator=gen, device="cuda").to(dtype)
+        times = {}
+        for ns in (1, 2, 4, 8, 16):
+            times[ns] = cuda_ms(lambda: dec_mod.flash_decode(
+                q, k, v, kvl, block_kv=64, num_splits=ns))
+        rule = dec_mod.decode_schedule(T, D)
+        out[dname] = {"ms_by_splits": times, "rule": list(rule)}
+        print(f"  flash_decode B={B} {dname:8s} device ms by split count "
+              f"(64 positions a tile): " + ", ".join(
+                  f"{n}: {t:.4f}" for n, t in times.items())
+              + f"; the port's rule: {rule[1]} splits of {rule[0]}",
+              flush=True)
+    dec_mod.LAUNCHES = n0
+    return out
+
+
+def lm_inputs(cfg, seed):
+    """One chunk-prefill batch and 4 decode steps for the card-vs-CPU
+    check: 8 slots, a 1024-position cache holding noise below each row's
+    chunk, ragged offsets and lengths (one slot inactive)."""
+    import torch
+    rng = np.random.default_rng(seed)
+    B, T, C = LM_SLOTS, LM_MAX_LEN, LM_CHUNK
+    pos = np.asarray([0, 128, 256, 0, 384, 0, 512, 100], np.int32)
+    lens = np.asarray([128, 128, 64, 0, 128, 17, 128, 128], np.int32)
+    tokens = rng.integers(0, cfg.vocab, (B, C)).astype(np.int32)
+    dec = [rng.integers(0, cfg.vocab, (B, 1)).astype(np.int32)
+           for _ in range(4)]
+    g = torch.Generator().manual_seed(seed)
+    shape = (cfg.n_layers, B, T, cfg.n_kv_heads, cfg.d_head)
+    cache = {n: 0.5 * torch.randn(shape, generator=g) for n in ("k", "v")}
+    return tokens, pos, lens, dec, cache
+
+
+def lm_run(params, cfg, inputs, device, roll=0, noise_seed=None):
+    """Prefill then 4 decodes on ``device`` (f32): [(logits (B, 1, V) on
+    the CPU, live cache rows)] per call.  ``roll`` rolls the batch by that
+    many rows; ``noise_seed`` refills every cache position at or past each
+    row's prefilled length with fresh noise first."""
+    import torch
+    from repro_torch.models import lm
+    from repro_torch.substrate.precision import get_policy
+    tokens, pos, lens, dec, cache0 = inputs
+    pol = get_policy("f32")
+    r = lambda a: np.roll(a, roll, axis=0)
+    cache = {n: torch.roll(t, roll, dims=1).to(device)
+             for n, t in cache0.items()}
+    pos, lens = r(pos), r(lens)
+    if noise_seed is not None:
+        g = torch.Generator().manual_seed(noise_seed)
+        for t in cache.values():
+            for b in range(t.shape[1]):
+                start = int(pos[b] + lens[b])
+                t[:, b, start:] = torch.randn(
+                    (t.shape[0], t.shape[2] - start, *t.shape[3:]),
+                    generator=g).to(device)
+    out = []
+    logits, cache = lm.prefill_chunk(params, r(tokens), cache, pos, lens, cfg,
+                                     policy=pol)
+    kvl = pos + lens
+    out.append((logits.cpu(), kvl.copy()))
+    at = kvl.copy()
+    for t in dec:
+        logits, cache = lm.decode_step(params, r(t), cache, at, cfg,
+                                       policy=pol)
+        at = at + 1
+        out.append((logits.cpu(), at.copy()))
+    live = {n: [c[:, b, :int(at[b])].cpu() for b in range(len(at))]
+            for n, c in cache.items()}
+    return out, live
+
+
+def lm_compare(cfg, params_card, params_cpu, inputs, label):
+    """Card vs CPU over a prefill and 4 decodes: logits within LM_TOL of
+    the largest |logit| per call, the live cache within LM_TOL of its
+    largest; then the rows rolled one place with fresh noise in every
+    not-yet-written cache position, bit for bit."""
+    import torch
+    t0 = time.perf_counter()
+    card, card_cache = lm_run(params_card, cfg, inputs, "cuda")
+    torch.cuda.synchronize()
+    t_card = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    cpu, cpu_cache = lm_run(params_cpu, cfg, inputs, "cpu")
+    t_cpu = time.perf_counter() - t0
+    lens = inputs[2]
+    errs = [float((lc - lp).abs().max()) / float(lp.abs().max())
+            for (lc, _), (lp, _) in zip(card, cpu)]
+    cache_err = max(
+        float((a - b).abs().max()) / float(b.abs().max())
+        for n in ("k", "v") for a, b in zip(card_cache[n], cpu_cache[n]))
+    print(f"  {label}: card {t_card:.2f} s, CPU {t_cpu:.2f} s; logits card "
+          f"vs CPU per call (prefill, then 4 decodes), max |diff| / max "
+          f"|logit|: {[f'{e:.2e}' for e in errs]}; live KV cache "
+          f"{cache_err:.2e} (tolerance {LM_TOL})", flush=True)
+    check(max(errs) <= LM_TOL and cache_err <= LM_TOL,
+          f"{label}: card vs CPU {errs}, cache {cache_err}")
+    rolled, _ = lm_run(params_card, cfg, inputs, "cuda", roll=1,
+                       noise_seed=99)
+    same, total = 0, 0
+    for (a, _), (b, _) in zip(card, rolled):
+        for row in range(len(lens)):
+            total += 1
+            same += bool(torch.equal(a[row], b[(row + 1) % len(lens)]))
+    print(f"  batch invariance: rows rolled one place, the not-yet-written "
+          f"cache filled with fresh noise: {same} of {total} (row, call) "
+          f"logits bit-identical", flush=True)
+    check(same == total, f"{label}: rolled rows differ ({same}/{total})")
+    return {"logits_err": errs, "cache_err": cache_err, "card_s": t_card,
+            "cpu_s": t_cpu, "rolled_identical": same, "rolled_total": total}
+
+
+def sharpen(params, factor):
+    """The same parameters with every wq and wk (and their biases) scaled
+    by ``factor``: scores grow by factor^2, the attention sharpens."""
+    from repro_torch.substrate.precision import tree_map
+    out = dict(params)
+    out["blocks"] = []
+    for bp in params["blocks"]:
+        bp = dict(bp, attn=dict(bp["attn"]))
+        for n in ("wq", "wk"):
+            bp["attn"][n] = tree_map(lambda t: t * factor, bp["attn"][n])
+        out["blocks"].append(bp)
+    return out
+
+
+def layer0_peak(params, cfg, inputs):
+    """Median over live chunk rows and heads of layer 0's largest softmax
+    weight, and of that weight minus the uniform one (1 / keys seen), on
+    the CPU's plain route."""
+    import torch
+    from repro_torch.models import lm
+    from repro_torch.substrate import attention as attn, layers
+    tokens, pos, lens, _, cache = inputs
+    bp = params["blocks"][0]
+    x = layers.apply_embed(params["embed"], torch.from_numpy(tokens).long())
+    h = layers.apply_norm(bp["ln1"], x, norm_type=cfg.norm_type)
+    q, k, _ = attn.project_qkv(bp["attn"], h, cfg)
+    qpos = torch.from_numpy(pos)[:, None] + torch.arange(tokens.shape[1])
+    cos, sin = lm._rope_for(cfg, qpos, x.dtype)
+    q, k = attn.apply_rope(q, cos, sin), attn.apply_rope(k, cos, sin)
+    peaks, above = [], []
+    G = cfg.n_heads // cfg.n_kv_heads
+    for b in range(len(lens)):
+        n, p0 = int(lens[b]), int(pos[b])
+        if not n:
+            continue
+        keys = torch.cat([cache["k"][0, b, :p0], k[b, :n]])   # (p0+n, KH, D)
+        s = torch.einsum("ihd,thd->iht", q[b, :n],
+                         keys.repeat_interleave(G, 1)) / cfg.d_head ** 0.5
+        t = torch.arange(p0 + n)
+        vis = t[None, :] <= (p0 + torch.arange(n))[:, None]
+        w = torch.softmax(s.masked_fill(~vis[:, None], -1e30), -1)
+        mx = w.amax(-1)
+        peaks.append(mx.flatten())
+        above.append((mx - 1.0 / vis.sum(-1)[:, None]).flatten())
+    return float(torch.cat(peaks).median()), float(torch.cat(above).median())
+
+
+def lm_check_phase(cfg, card):
+    """Full-width qwen2-1.5b from one seed: the card (kernels) vs the CPU
+    (plain versions) over a prefill and 4 decodes, then the same at
+    sharpened attention (depth cut to LM_SHARP_LAYERS)."""
+    import torch
+    from repro_torch.models import lm
+    from repro_torch.substrate.precision import tree_map
+    params = lm.init(torch.Generator(device="cuda").manual_seed(0), cfg,
+                     "cuda")
+    cpu_params = tree_map(lambda t: t.cpu(), params)
+    inputs = lm_inputs(cfg, seed=1)
+    res = {"random": lm_compare(cfg, params, cpu_params, inputs,
+                                f"full width ({cfg.n_layers} layers, f32, "
+                                "random weights from seed 0)")}
+    cut = dataclasses.replace(cfg, n_layers=LM_SHARP_LAYERS)
+    sharp = sharpen(dict(cpu_params, blocks=cpu_params["blocks"][
+        :LM_SHARP_LAYERS]), LM_SHARP)
+    del cpu_params
+    peak, above = layer0_peak(sharp, cut, inputs)
+    print(f"  sharp weights (wq, wk x{LM_SHARP}), depth cut to "
+          f"{LM_SHARP_LAYERS} of {cfg.n_layers} layers: layer 0's largest "
+          f"softmax weight per live row and head, median {peak:.4f} (limit "
+          f"> 0.5), median above uniform {above:.4f} (limit > 0.3)",
+          flush=True)
+    check(peak > 0.5 and above > 0.3, f"sharp weights not sharp: {peak}, "
+                                      f"{above}")
+    sharp_card = tree_map(lambda t: t.cuda(), sharp)
+    inputs_cut = inputs[:4] + ({n: t[:LM_SHARP_LAYERS].clone()
+                                for n, t in inputs[4].items()},)
+    res["sharp"] = lm_compare(cut, sharp_card, sharp, inputs_cut,
+                              f"sharp, {LM_SHARP_LAYERS} layers (f32)")
+    res["sharp"].update(peak_median=peak, above_uniform_median=above)
+    del sharp, sharp_card
+    return params, res
+
+
+def lm_requests(cfg, n, seed):
+    from repro_torch.serve.engine import Request
+    rng = np.random.default_rng(seed)
+    return [Request(rid=i, prompt=rng.integers(0, cfg.vocab,
+                                               int(rng.integers(64, 513)),
+                                               dtype=np.int32),
+                    max_new_tokens=LM_NEW) for i in range(n)]
+
+
+def lm_window(cfg, params, label, policy="f32"):
+    """LM_REQUESTS requests served to the end through ServeEngine: (engine,
+    requests, seconds, kernel launches)."""
+    import torch
+    from repro_torch.kernels.flash_attention import decode as dec_mod
+    from repro_torch.kernels.flash_attention import flash_attention as fa_mod
+    from repro_torch.serve.engine import ServeEngine
+    eng = ServeEngine(cfg, params, slots=LM_SLOTS, max_len=LM_MAX_LEN,
+                      prefill_chunk=LM_CHUNK, policy_name=policy,
+                      device="cuda")
+    reqs = lm_requests(cfg, LM_REQUESTS, seed=5)
+    for r in reqs:
+        eng.submit(r)
+    torch.cuda.synchronize()
+    fa_mod.LAUNCHES = dec_mod.LAUNCHES = 0
+    t0 = time.perf_counter()
+    done = eng.run()
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    counts = dict(eng.stats, flash_chunk=fa_mod.LAUNCHES,
+                  flash_decode=dec_mod.LAUNCHES)
+    n_tok = sum(len(r.tokens) for r in done)
+    print(f"  {label}: {len(reqs)} requests, {n_tok} generated tokens in "
+          f"{dt:.3f} s: {n_tok / dt:.1f} tok/s; prefill launches "
+          f"{eng.stats['prefill_launches']}, decode steps "
+          f"{eng.stats['decode_steps']}", flush=True)
+    check(len(done) == len(reqs) and all(
+        r.status == "done" and len(r.tokens) == LM_NEW
+        and all(0 <= t < cfg.vocab for t in r.tokens) for r in reqs),
+        f"{label}: not every request got {LM_NEW} tokens")
+    check(lm_launches_ok(counts, cfg.n_layers),
+          f"{label}: launches {counts} (want {cfg.n_layers} per prefill "
+          "launch and per decode step)")
+    return eng, reqs, dt, counts
+
+
+def lm_serve_phase(cfg, params, card):
+    """The LM main path: full-width qwen2-1.5b through ServeEngine (8
+    slots, 1024 positions, chunks of 128), f32; counts reset just before
+    window 1 and read just after; two more windows for the spread, one
+    bf16 window, one profiled decode step."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.serve.engine import ServeEngine
+    # warm-up (cuBLAS handles, kernel modules): not measured
+    warm = ServeEngine(cfg, params, slots=LM_SLOTS, max_len=LM_MAX_LEN,
+                       prefill_chunk=LM_CHUNK, device="cuda")
+    for r in lm_requests(cfg, 2, seed=4):
+        r.max_new_tokens = 2
+        warm.submit(r)
+    warm.run()
+    del warm
+    eng, reqs, dt, counts = lm_window(cfg, params, "window 1 (main path)")
+    print(f"  launches: flash_chunk {counts['flash_chunk']} = "
+          f"{cfg.n_layers} x {counts['prefill_launches']} prefill launches; "
+          f"flash_decode {counts['flash_decode']} = {cfg.n_layers} x "
+          f"{counts['decode_steps']} decode steps", flush=True)
+    distinct = [len(set(r.tokens)) for r in reqs]
+    print(f"  every request got its {LM_NEW} tokens; distinct tokens per "
+          f"request: min {min(distinct)}, median "
+          f"{int(np.median(distinct))} (random weights: the card-vs-CPU "
+          f"logits above are the check)", flush=True)
+    n_tok = LM_REQUESTS * LM_NEW
+    runs = [n_tok / dt]
+    del eng
+    for k in range(2, LM_WINDOWS + 1):
+        _, _, t, _ = lm_window(cfg, params, f"window {k}")
+        runs.append(n_tok / t)
+    med = float(np.median(runs))
+    spread = (max(runs) - min(runs)) / med
+    print(f"  generated tok/s over {LM_WINDOWS} f32 windows: "
+          f"{[round(v, 1) for v in runs]}, median {med:.1f}, spread "
+          f"(max-min)/median {100 * spread:.1f}% [{card}]", flush=True)
+    _, _, t_bf, c_bf = lm_window(cfg, params, "bf16 window (params cast "
+                                 "once)", policy="bf16")
+    # one profiled f32 decode step, all slots mid-decode
+    eng = ServeEngine(cfg, params, slots=LM_SLOTS, max_len=LM_MAX_LEN,
+                      prefill_chunk=LM_CHUNK, device="cuda")
+    for r in lm_requests(cfg, LM_SLOTS, seed=6):
+        r.max_new_tokens = 100
+        eng.submit(r)
+    eng._fill_slots()
+    for _ in range(3):
+        eng._step()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        eng._step()
+        torch.cuda.synchronize()
+        wall = 1e3 * (time.perf_counter() - t0)
+    kernels = device_kernels(prof)
+    busy = sum(k["ms"] for k in kernels)
+    dec_ms = sum(k["ms"] for k in kernels if "flash_decode" in k["kernel"]
+                 or "combine_kernel" in k["kernel"])
+    print(f"  one f32 decode step, {LM_SLOTS} slots mid-decode (positions "
+          f"{eng.pos.tolist()}): wall {wall:.3f} ms", flush=True)
+    if kernels:
+        print(f"  device busy {busy:.3f} ms = {100 * busy / wall:.1f}% of "
+              f"wall; flash_decode (both passes) {dec_ms:.3f} ms; by "
+              f"kernel:", flush=True)
+        for k in kernels[:12]:
+            print(f"    {k['ms']:9.3f} ms  x{k['count']:<4d} {k['kernel']}",
+                  flush=True)
+    else:
+        print("  device time: not measured (the profiler saw no device "
+              "activity)", flush=True)
+    return {"counts": counts, "tok_s_runs": runs, "tok_s_median": med,
+            "tok_s_spread": spread, "bf16_tok_s": n_tok / t_bf,
+            "bf16_counts": c_bf,
+            "profile": {"wall_ms": wall,
+                        "device_ms": busy if kernels else None,
+                        "flash_decode_ms": dec_ms if kernels else None,
+                        "kernels": kernels[:12]}}
+
+
+def attention_entry(rows, kind, source, replaces, launches):
+    """The kernels-line entry of one attention kernel: its f32 row at the
+    path's shapes (the main path runs f32), the bf16 error beside it."""
+    r = next(r for r in rows if r["kernel"] == kind
+             and r["dtype"] == "float32")
+    rb = next(r for r in rows if r["kernel"] == kind
+              and r["dtype"] == "bfloat16")
+    return {"name": kind, "route": "cuda", "source": source,
+            "replaces": replaces, "launches": launches,
+            "max_abs_err": r["max_abs_err"],
+            "max_abs_err_bf16": rb["max_abs_err"], "ms": r["ms"],
+            "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+            "bound_by": r["bound_by"], "library_ms": r["library_ms"],
+            "timed": "one f32 call at the LM main path's shapes"}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1094,6 +1634,7 @@ def main() -> int:
               "False)", file=sys.stderr)
         return 1
     sys.path.insert(0, os.path.join(ROOT, "src"))
+    from repro_torch.configs import base as lm_base
     from repro_torch.configs import calo3dgan
     from repro_torch.core import adversarial
     from repro_torch.kernels import build
@@ -1128,6 +1669,13 @@ def main() -> int:
     print("dx (forward kernel) and dw (dw kernel) vs plain (TF32 off):",
           flush=True)
     grad_rows = timed("gradients", grad_phase, cfg)
+    print("serving attention kernels vs plain at the qwen2-1.5b shapes "
+          "(N(0, 1) inputs, TF32 off):", flush=True)
+    attn_rows = timed("attention", attention_phase,
+                      lm_base.get_config("qwen2-1.5b"))
+    print("decode split counts (the same shapes):", flush=True)
+    splits = timed("decode_splits", decode_split_phase,
+                   lm_base.get_config("qwen2-1.5b"))
     print("serving end to end (full calo3dgan.config(), f32 policy):",
           flush=True)
     e2e = timed("serve", e2e_phase, cfg, card)
@@ -1140,6 +1688,14 @@ def main() -> int:
     print(f"training main path (full calo3dgan.config(), bf16, batch "
           f"{BATCH}, RMSprop 1e-4):", flush=True)
     train = timed("train", train_phase, cfg, card)
+    lm_cfg = lm_base.get_config("qwen2-1.5b")
+    print(f"qwen2-1.5b (full width, random weights), card vs CPU:",
+          flush=True)
+    lm_params, lm_check = timed("lm_check", lm_check_phase, lm_cfg, card)
+    print(f"LM serving main path (full qwen2-1.5b, f32, {LM_SLOTS} slots, "
+          f"{LM_MAX_LEN} positions, chunks of {LM_CHUNK}):", flush=True)
+    lm_serve = timed("lm_serve", lm_serve_phase, lm_cfg, lm_params, card)
+    del lm_params
     print("phase seconds: " + ", ".join(f"{k} {v:.1f}"
                                         for k, v in phases.items()),
           flush=True)
@@ -1173,13 +1729,24 @@ def main() -> int:
           "profiled_ms": train["profile"]["conv3d_dw_ms"],
           "timed": "one bf16 training step at batch 128, the per-layer "
                    "dw times by launches"}
+    fa_dir = "src/repro_torch/kernels/flash_attention/csrc/"
+    chunk = attention_entry(
+        attn_rows, "flash_chunk", fa_dir + "flash_chunk.cu",
+        "src/repro/kernels/flash_attention/flash_attention.py:183",
+        lm_serve["counts"]["flash_chunk"])
+    decode = attention_entry(
+        attn_rows, "flash_decode", fa_dir + "flash_decode.cu",
+        "src/repro/kernels/flash_attention/decode.py:104",
+        lm_serve["counts"]["flash_decode"])
     os.makedirs(os.path.join(ROOT, "results"), exist_ok=True)
     with open(os.path.join(ROOT, "results", "chip_smoke.json"), "w") as f:
         json.dump({"card": card, "layers": rows + grad_rows, "e2e": e2e,
                    "check_step": check_step, "train": train,
+                   "attention": attn_rows, "decode_splits": splits,
+                   "lm_check": lm_check, "lm_serve": lm_serve,
                    "phase_s": phases}, f, indent=1)
     print(card, flush=True)
-    print(json.dumps({"kernels": [fwd, dw]}), flush=True)
+    print(json.dumps({"kernels": [fwd, dw, chunk, decode]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

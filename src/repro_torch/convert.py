@@ -5,14 +5,15 @@ dicts of arrays.  Handed over as numpy (``jax.device_get`` or a
 checkpoint), :func:`tree_from_numpy` turns any such tree into tensors
 with the same leaf names, layouts and dtypes, :func:`state_from_numpy`
 builds the port's ``GANState`` from the reference's fields, and
-:func:`generator_from_numpy` carries a generator over as f32 for serving.
+:func:`generator_from_numpy` carries a generator over as f32 for serving,
+and :func:`lm_from_numpy` a language model's parameters.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
-from repro_torch.substrate.precision import tree_map
+from repro_torch.substrate.precision import tree_leaves, tree_map
 
 
 def tree_from_numpy(tree, device="cuda"):
@@ -63,3 +64,17 @@ def generator_from_numpy(tree, device="cuda") -> dict:
 def generator_to_numpy(params) -> dict:
     """Nested dict of tensors -> nested dict of f32 numpy arrays."""
     return tree_to_numpy(tree_map(lambda t: t.float(), params))
+
+
+def lm_from_numpy(tree, device="cuda") -> dict:
+    """The reference's ``models/lm.init`` tree (as numpy) -> the port's LM
+    parameters on ``device``: the same leaves, dtypes and ``(d_in, d_out)``
+    layouts, with the ``blocks`` leaves (stacked on a leading layer axis)
+    cut into a list of per-layer dicts."""
+    out = {k: tree_from_numpy(v, device) for k, v in tree.items()
+           if k != "blocks"}
+    stacked = tree_from_numpy(tree["blocks"], device)
+    n_layers = len(tree_leaves(stacked)[0])
+    out["blocks"] = [tree_map(lambda t, i=i: t[i].contiguous(), stacked)
+                     for i in range(n_layers)]
+    return out

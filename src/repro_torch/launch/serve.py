@@ -1,16 +1,29 @@
-"""Serving launcher of the port: 3DGAN fast simulation on the card.
+"""Serving launcher of the port: 3DGAN fast simulation or LM continuous
+batching, on the card.
 
-Serves calorimeter showers from a 3DGAN generator (restored from a
-checkpoint, or random when none is given) through the bucketed engine
-(`serve/simulate.py`), with the rolling physics gate checking every window
-against fresh Monte Carlo.  Every generator conv runs through the CUDA
-kernel on ``--device cuda`` (the default).
+Two routes, selected by ``--model``:
+
+- ``--model gan`` (default) — calorimeter showers from a 3DGAN generator
+  (restored from a checkpoint, or random when none is given) through the
+  bucketed engine (`serve/simulate.py`), with the rolling physics gate
+  checking every window against fresh Monte Carlo.  Every generator conv
+  runs through the CUDA conv kernel.
+- ``--model lm`` — batched-request greedy decode of a dense language model
+  (random weights from ``--seed``) through the slot engine
+  (`serve/engine.py`): chunked prefill and split-KV decode run through
+  the CUDA attention kernels.
+
+Both run on the card unless given ``--device cpu`` (the plain versions of
+the kernels, no launches).
 
 Usage:
   python -m repro_torch.launch.serve --model gan --full
   python -m repro_torch.launch.serve --device cpu --reduced --requests 4
   python -m repro_torch.launch.serve --full --ckpt ckpts/gan  # a generator
       # saved by the JAX package's launch/train --ckpt loads unchanged
+  python -m repro_torch.launch.serve --model lm --arch qwen2-1.5b --full \
+      --slots 8 --max-len 1024 --prompt-len 512 --max-new 32 --requests 32
+  python -m repro_torch.launch.serve --model lm --device cpu --reduced
 """
 from __future__ import annotations
 
@@ -112,16 +125,66 @@ def serve_gan(args):
     return eng
 
 
+def serve_lm(args):
+    from repro_torch.configs import base as config_base
+    from repro_torch.kernels.flash_attention import decode as decode_mod
+    from repro_torch.kernels.flash_attention import flash_attention as fa_mod
+    from repro_torch.models import api
+    from repro_torch.serve.engine import Request, ServeEngine
+
+    cfg = (config_base.reduced_config(args.arch) if args.reduced
+           else config_base.get_config(args.arch))
+    model = api.get_model(cfg)
+    gen = torch.Generator(device=args.device).manual_seed(args.seed)
+    params = model.init(gen, cfg, args.device)
+    eng = ServeEngine(cfg, params, slots=args.slots, max_len=args.max_len,
+                      device=args.device)
+    del params
+    rng = np.random.default_rng(args.seed)
+    for rid in range(args.requests):
+        plen = int(rng.integers(4, args.prompt_len + 1))
+        eng.submit(Request(rid=rid,
+                           prompt=rng.integers(0, cfg.vocab, plen,
+                                               dtype=np.int32),
+                           max_new_tokens=args.max_new))
+    chunk0, decode0 = fa_mod.LAUNCHES, decode_mod.LAUNCHES
+    t0 = time.perf_counter()
+    done = eng.run()
+    if eng.device.type == "cuda":
+        torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    total_new = sum(len(r.tokens) for r in done)
+    where = (torch.cuda.get_device_name(0) if eng.device.type == "cuda"
+             else "cpu (plain attention, no kernel)")
+    print(f"served {len(done)} requests, {total_new} tokens in {dt:.1f}s "
+          f"({total_new / dt:.1f} tok/s) on {where}")
+    print(f"  prefill_launches={eng.stats['prefill_launches']} "
+          f"decode_steps={eng.stats['decode_steps']} "
+          f"chunk_kernel_launches={fa_mod.LAUNCHES - chunk0} "
+          f"decode_kernel_launches={decode_mod.LAUNCHES - decode0}")
+    for r in sorted(done, key=lambda r: r.rid)[:4]:
+        print(f"  req {r.rid}: prompt[:4]={r.prompt[:4].tolist()} "
+              f"-> {r.tokens[:8]}...")
+    return eng
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser()
-    ap.add_argument("--model", choices=("gan",), default="gan",
-                    help="gan: 3DGAN fast-simulation service (the only "
-                         "route ported so far)")
+    ap.add_argument("--model", choices=("gan", "lm"), default="gan",
+                    help="gan: 3DGAN fast-simulation service; lm: "
+                         "continuous-batching decode of a language model")
     ap.add_argument("--device", choices=("cuda", "cpu"), default="cuda")
     ap.add_argument("--reduced", action="store_true", default=True)
     ap.add_argument("--full", dest="reduced", action="store_false")
     ap.add_argument("--requests", type=int, default=8)
     ap.add_argument("--seed", type=int, default=0)
+    # lm route
+    ap.add_argument("--arch", default="qwen2-1.5b")
+    ap.add_argument("--slots", type=int, default=4)
+    ap.add_argument("--max-new", type=int, default=16)
+    ap.add_argument("--prompt-len", type=int, default=12)
+    ap.add_argument("--max-len", type=int, default=128)
+    # gan route
     ap.add_argument("--ckpt", default="",
                     help="generator checkpoint dir (launch/train --ckpt)")
     ap.add_argument("--max-events", type=int, default=64,
@@ -145,7 +208,7 @@ def main(argv=None):
                     help="draw request priorities uniformly from "
                          "[0, priorities)")
     args = ap.parse_args(argv)
-    return serve_gan(args)
+    return serve_lm(args) if args.model == "lm" else serve_gan(args)
 
 
 if __name__ == "__main__":

@@ -18,7 +18,8 @@ admission control, and continuous batching (a copy of the reference's
 - **continuous batching** — :meth:`Scheduler.plan_step` admits requests
   into the next bucket step in scheduling order (promoted, then
   priority, then deadline).  Requests split across steps and share
-  buckets.
+  buckets.  The LM slot engine takes whole requests with
+  :meth:`Scheduler.pop_next` instead.
 - **age-based promotion** — an entry passed over for
   ``promote_after_steps`` consecutive bucket steps jumps to the front of
   the order (FIFO among promoted), so an old small request never starves.
@@ -317,6 +318,23 @@ class Scheduler:
             plan.append((e, take))
             row += take
         return bucket, plan
+
+    def pop_next(self) -> Optional[Any]:
+        """Remove and return the first queued item in scheduling order: the
+        slot-pool engine's admission primitive (`serve/engine.py` claims
+        one whole request per freed slot; no bucket packing).  Ages the
+        passed-over entries like :meth:`commit`, so the promotion rule
+        applies to both front-ends."""
+        order = self._order()
+        if not order:
+            return None
+        e = order[0]
+        if e.waited_steps >= self.config.promote_after_steps > 0:
+            self.stats["promotions"] += 1
+        self._entries.remove(e)
+        for other in self._entries:
+            other.waited_steps += 1
+        return e.item
 
     def commit(self, plan) -> None:
         """Apply a :meth:`plan_step` result after its dispatch succeeded:

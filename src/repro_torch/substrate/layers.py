@@ -1,10 +1,14 @@
-"""Initializers, layernorm and dense layers on tensors.
+"""Initializers, norms, dense layers, the SwiGLU FFN and the embedding on
+tensors.
 
 Parameters are nested dicts of tensors with the reference's leaf names and
-layouts (dense ``w`` is ``(d_in, d_out)``)."""
+layouts (dense ``w`` is ``(d_in, d_out)``).  The norms default to
+layernorm, which the GAN uses; the language models pass their config's
+``norm_type`` (rmsnorm for qwen2)."""
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 
 
 def normal_init(gen: torch.Generator, shape, scale=0.02, device="cuda"):
@@ -15,15 +19,20 @@ def normal_init(gen: torch.Generator, shape, scale=0.02, device="cuda"):
                                 dtype=torch.float32)).to(device)
 
 
-def init_norm(d: int, device="cuda"):
+def init_norm(d: int, device="cuda", norm_type: str = "layernorm"):
+    if norm_type == "rmsnorm":
+        return {"scale": torch.ones((d,), device=device)}
     return {"scale": torch.ones((d,), device=device),
             "bias": torch.zeros((d,), device=device)}
 
 
-def apply_norm(p, x, eps: float = 1e-5):
-    """Layernorm over the last (channel) axis only, with statistics in f32
-    (population variance), cast back to ``x.dtype``."""
+def apply_norm(p, x, eps: float = 1e-5, norm_type: str = "layernorm"):
+    """Layernorm (population variance) or rmsnorm over the last axis only,
+    with statistics in f32, cast back to ``x.dtype``."""
     xf = x.float()
+    if norm_type == "rmsnorm":
+        y = xf * torch.rsqrt(xf.square().mean(dim=-1, keepdim=True) + eps)
+        return (y * p["scale"]).to(x.dtype)
     mean = xf.mean(dim=-1, keepdim=True)
     var = xf.var(dim=-1, unbiased=False, keepdim=True)
     y = (xf - mean) * torch.rsqrt(var + eps)
@@ -44,3 +53,26 @@ def apply_dense(p, x):
     if "b" in p:
         y = y + p["b"].to(x.dtype)
     return y
+
+
+def init_ffn(gen: torch.Generator, d_model, d_ff, device="cuda"):
+    """SwiGLU FFN parameters (the only FFN the port's LM runs)."""
+    return {"w_gate": normal_init(gen, (d_model, d_ff), device=device),
+            "w_in": normal_init(gen, (d_model, d_ff), device=device),
+            "w_out": normal_init(gen, (d_ff, d_model), device=device)}
+
+
+def apply_ffn(p, x):
+    """SwiGLU: (silu(x @ w_gate) * (x @ w_in)) @ w_out."""
+    h = F.silu(x @ p["w_gate"].to(x.dtype)) * (x @ p["w_in"].to(x.dtype))
+    return h @ p["w_out"].to(x.dtype)
+
+
+def init_embed(gen: torch.Generator, vocab, d_model, device="cuda"):
+    return {"emb": normal_init(gen, (vocab, d_model), 0.02, device)}
+
+
+def apply_embed(p, tokens, dtype=torch.float32):
+    """Rows of the embedding for ``tokens`` (int, any shape), in ``dtype``
+    (only the gathered rows are cast)."""
+    return p["emb"][tokens].to(dtype)

@@ -18,19 +18,25 @@ import torch
 
 
 def tree_map(fn, tree, *rest):
-    """``fn`` over the leaves of nested dicts (``None`` leaves stay None)."""
+    """``fn`` over the leaves of nested dicts and lists (``None`` leaves
+    stay None)."""
     if isinstance(tree, dict):
         return {k: tree_map(fn, v, *(r[k] for r in rest))
                 for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [tree_map(fn, v, *(r[i] for r in rest))
+                for i, v in enumerate(tree)]
     if tree is None:
         return None
     return fn(tree, *rest)
 
 
 def tree_leaves(tree) -> list:
-    """The tensor leaves of nested dicts, in key order."""
+    """The tensor leaves of nested dicts and lists, in key order."""
     if isinstance(tree, dict):
         return [leaf for v in tree.values() for leaf in tree_leaves(v)]
+    if isinstance(tree, list):
+        return [leaf for v in tree for leaf in tree_leaves(v)]
     return [] if tree is None else [tree]
 
 

@@ -1,7 +1,10 @@
 """The port's CUDA kernels on the card: each held against its plain
 version over dtypes, activations and geometries (strides, dilation,
 cropping pads, Ci=1, Co=1), their launch counters and input checks, the
-ops' gradients, the engine and a training step on the card.  Every test
+ops' gradients, the engine and a training step on the card; the serving
+attention kernels (split-KV decode, chunked prefill) over ragged GQA /
+MQA / MHA shapes, windows and inactive rows, and the LM and its engine on
+the card against the CPU.  Every test
 needs a card and skips elsewhere; this file imports no JAX, so on the
 machine with the card it runs without the JAX package:
 
@@ -10,7 +13,9 @@ machine with the card it runs without the JAX package:
 TF32 is off for every comparison.  Tolerances: the forward kernel f32
 1e-4 (summation order), bf16/fp16 one rounding of the same f32 sum
 (1e-2 / 2e-3); the dw kernel 1e-4 of the largest |dw| in every dtype
-(both sides sum the same rounded inputs in f32, in another order).
+(both sides sum the same rounded inputs in f32, in another order); the
+attention kernels f32 1e-5, bf16 1e-2 absolute and relative (one bf16
+rounding of the same f32 result); the LM's logits 1e-4 of the largest.
 """
 import numpy as np
 import pytest
@@ -22,6 +27,12 @@ from repro_torch.data.calo import CaloSimulator, CaloSpec
 from repro_torch.kernels.conv3d import conv3d as tconv
 from repro_torch.kernels.conv3d import ops
 from repro_torch.kernels.conv3d.ref import conv_core_ref, conv_dw_core_ref
+from repro_torch.configs import base as lm_base
+from repro_torch.kernels.flash_attention import decode as tdecode
+from repro_torch.kernels.flash_attention import flash_attention as tchunk
+from repro_torch.kernels.flash_attention import ref as attn_ref
+from repro_torch.models import lm as tlm
+from repro_torch.serve.engine import Request, ServeEngine
 from repro_torch.optim import optimizers as opt_lib
 from repro_torch.serve.simulate import SimRequest, SimulateEngine, event_noise
 from repro_torch.substrate import precision
@@ -279,3 +290,159 @@ def test_engine_fit_on_card_resumes_bit_for_bit(cuda):
         for a, b in zip(precision.tree_leaves(getattr(full, which)),
                         precision.tree_leaves(getattr(resumed, which))):
             assert torch.equal(a, b), which
+
+
+ATTN_TOL = {torch.float32: (1e-5, 0.0), torch.bfloat16: (1e-2, 1e-2)}
+DECODE_GEOMS = [
+    # B, T, H, KH, D, kv_lens, window
+    (8, 1024, 12, 2, 128, (1, 64, 65, 500, 1023, 1024, 0, 7), 0),  # qwen2
+    (3, 96, 8, 2, 32, (1, 37, 96), 0),
+    (2, 64, 4, 1, 16, (5, 64), 0),                                 # MQA
+    (1, 200, 4, 4, 64, (123,), 0),                                 # MHA
+    (3, 128, 4, 2, 32, (128, 60, 13), 48),                         # window
+    (2, 300, 40, 1, 256, (300, 129), 0),                           # G=40
+]
+
+
+def _attn_close(got, want, dtype):
+    atol, rtol = ATTN_TOL[dtype]
+    diff = (got.float() - want.float()).abs()
+    assert bool((diff <= atol + rtol * want.float().abs()).all()), \
+        float(diff.max())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,T,H,KH,D,kv_lens,window", DECODE_GEOMS)
+def test_flash_decode_kernel_matches_plain(cuda, B, T, H, KH, D, kv_lens,
+                                           window, dtype):
+    g = torch.Generator(device=cuda).manual_seed(0)
+    q = torch.randn((B, 1, H, D), generator=g, device=cuda).to(dtype)
+    k = torch.randn((B, T, KH, D), generator=g, device=cuda).to(dtype)
+    v = torch.randn((B, T, KH, D), generator=g, device=cuda).to(dtype)
+    kvl = torch.tensor(kv_lens, dtype=torch.int32, device=cuda)
+    own = tdecode.decode_schedule(T, D)
+    for kw in (dict(block_kv=own[0], num_splits=own[1]),
+               dict(block_kv=32, num_splits=3),
+               dict(block_kv=16, num_splits=1)):
+        n0 = tdecode.LAUNCHES
+        got = tdecode.flash_decode(q, k, v, kvl, window=window, **kw)
+        torch.cuda.synchronize()
+        assert tdecode.LAUNCHES == n0 + 1
+        want = attn_ref.flash_decode_ref(q, k, v, kvl, window=window, **kw)
+        assert got.shape == want.shape and got.dtype == dtype
+        _attn_close(got, want, dtype)
+        empty = kvl == 0
+        assert bool((got[empty] == 0).all())
+
+
+CHUNK_GEOMS = [
+    # B, C, T, H, KH, D, offsets, lens, window
+    (8, 128, 1024, 12, 2, 128, (0, 128, 384, 0, 512, 896, 3, 0),
+     (128, 128, 100, 0, 64, 128, 1, 0), 0),                       # qwen2
+    (4, 24, 96, 6, 2, 32, (0, 10, 40, 7), (24, 24, 13, 0), 0),
+    (4, 24, 96, 6, 2, 32, (0, 10, 40, 7), (24, 24, 13, 0), 20),   # window
+    (2, 37, 75, 4, 1, 16, (0, 30), (37, 20), 0),                  # MQA, odd
+    (2, 9, 40, 64, 1, 64, (5, 0), (9, 3), 0),                     # G = 64
+]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,C,T,H,KH,D,offs,lens,window", CHUNK_GEOMS)
+def test_flash_chunk_kernel_matches_plain(cuda, B, C, T, H, KH, D, offs,
+                                          lens, window, dtype):
+    g = torch.Generator(device=cuda).manual_seed(1)
+    q = torch.randn((B, C, H, D), generator=g, device=cuda).to(dtype)
+    k = torch.randn((B, T, KH, D), generator=g, device=cuda).to(dtype)
+    v = torch.randn((B, T, KH, D), generator=g, device=cuda).to(dtype)
+    off = torch.tensor(offs, dtype=torch.int32, device=cuda)
+    ln = torch.tensor(lens, dtype=torch.int32, device=cuda)
+    kvl = torch.where(ln > 0, off + ln, torch.zeros_like(ln))
+    n0 = tchunk.LAUNCHES
+    got = tchunk.flash_attention_chunk(q, k, v, off, kvl, window=window)
+    torch.cuda.synchronize()
+    assert tchunk.LAUNCHES == n0 + 1
+    want = attn_ref.flash_chunk_ref(q, k, v, off, kvl, window=window)
+    assert got.shape == want.shape and got.dtype == dtype
+    _attn_close(got, want, dtype)
+    assert bool((got[kvl == 0] == 0).all())
+    assert bool(torch.isfinite(got.float()).all())
+
+
+def test_attention_kernels_reject_what_they_do_not_take(cuda):
+    q = torch.zeros((2, 1, 4, 16), device=cuda, dtype=torch.float16)
+    k = torch.zeros((2, 8, 2, 16), device=cuda, dtype=torch.float16)
+    kvl = torch.ones((2,), dtype=torch.int32, device=cuda)
+    n0, c0 = tdecode.LAUNCHES, tchunk.LAUNCHES
+    with pytest.raises(TypeError):
+        tdecode.flash_decode(q, k, k, kvl)
+    with pytest.raises(TypeError):
+        tchunk.flash_attention_chunk(q, k, k, kvl, kvl)
+    with pytest.raises(ValueError):
+        tdecode.flash_decode(q.float(), k.float(), k.float(), kvl.cpu())
+    with pytest.raises(ValueError):
+        tdecode.flash_decode(torch.zeros((1, 1, 512, 512), device=cuda),
+                             torch.zeros((1, 4, 1, 512), device=cuda),
+                             torch.zeros((1, 4, 1, 512), device=cuda),
+                             kvl[:1])
+    with pytest.raises(ValueError, match="D in"):
+        tchunk.flash_attention_chunk(torch.zeros((1, 4, 2, 80), device=cuda),
+                                     torch.zeros((1, 8, 1, 80), device=cuda),
+                                     torch.zeros((1, 8, 1, 80), device=cuda),
+                                     kvl[:1], kvl[:1])
+    assert (tdecode.LAUNCHES, tchunk.LAUNCHES) == (n0, c0)
+
+
+def test_lm_on_card_matches_cpu_and_counts_launches(cuda):
+    """The reduced qwen2-1.5b on the card (kernels) against the CPU (plain
+    versions): a ragged prefill chunk and 3 decodes, logits within 1e-4
+    of the largest; one launch of each kernel per layer per call."""
+    cfg = lm_base.reduced_config("qwen2-1.5b")
+    params = tlm.init(torch.Generator().manual_seed(0), cfg, "cpu")
+    pol = precision.get_policy("f32")
+    B, C, T = 4, 16, 64
+    rng = np.random.default_rng(0)
+    tokens = rng.integers(0, cfg.vocab, (B, C)).astype(np.int32)
+    pos = np.asarray([0, 5, 20, 9], np.int32)
+    lens = np.asarray([16, 11, 0, 3], np.int32)
+    dec = [rng.integers(0, cfg.vocab, (B, 1)).astype(np.int32)
+           for _ in range(3)]
+    outs = {}
+    for dev in ("cpu", "cuda"):
+        p = precision.tree_map(lambda t: t.to(dev), params)
+        cache = tlm.init_cache(cfg, B, T, torch.float32, dev)
+        c0, d0 = tchunk.LAUNCHES, tdecode.LAUNCHES
+        logits, cache = tlm.prefill_chunk(p, tokens, cache, pos, lens, cfg,
+                                          policy=pol)
+        got = [logits.cpu()]
+        at = pos + lens
+        for t in dec:
+            logits, cache = tlm.decode_step(p, t, cache, at, cfg, policy=pol)
+            got.append(logits.cpu())
+            at = at + 1
+        outs[dev] = got
+        if dev == "cuda":
+            assert tchunk.LAUNCHES - c0 == cfg.n_layers
+            assert tdecode.LAUNCHES - d0 == 3 * cfg.n_layers
+    for a, b in zip(outs["cuda"], outs["cpu"]):
+        assert float((a - b).abs().max()) <= 1e-4 * float(b.abs().max())
+
+
+def test_lm_engine_on_card_chunked_matches_sequential(cuda):
+    cfg = lm_base.reduced_config("qwen2-1.5b")
+    params = tlm.init(torch.Generator().manual_seed(1), cfg, "cpu")
+    rng = np.random.default_rng(9)
+    prompts = [rng.integers(0, cfg.vocab, n, dtype=np.int32)
+               for n in (5, 12, 3, 9, 17)]
+    out = {}
+    for mode in ("sequential", "chunked"):
+        eng = ServeEngine(cfg, params, slots=3, max_len=64, prefill=mode,
+                          prefill_chunk=8, device="cuda")
+        c0, d0 = tchunk.LAUNCHES, tdecode.LAUNCHES
+        for i, p in enumerate(prompts):
+            eng.submit(Request(rid=i, prompt=p, max_new_tokens=6))
+        out[mode] = {r.rid: r.tokens for r in eng.run()}
+        assert tchunk.LAUNCHES - c0 == \
+            cfg.n_layers * eng.stats["prefill_launches"]
+        assert tdecode.LAUNCHES - d0 == \
+            cfg.n_layers * eng.stats["decode_steps"]
+    assert out["chunked"] == out["sequential"]

@@ -238,6 +238,10 @@ print(json.dumps({"modules": names, "bad": bad}))
                          text=True, check=True, timeout=300, env=env)
     res = json.loads(out.stdout.strip().splitlines()[-1])
     for mod in ("serve.simulate", "kernels.build", "core.adversarial",
-                "optim.optimizers", "train.engine", "launch.train"):
+                "optim.optimizers", "train.engine", "launch.train",
+                "configs.base", "configs.qwen2_1_5b", "substrate.attention",
+                "kernels.flash_attention.ref", "kernels.flash_attention.decode",
+                "kernels.flash_attention.flash_attention", "models.lm",
+                "models.api", "train.steps", "serve.engine"):
         assert f"repro_torch.{mod}" in res["modules"]
     assert res["bad"] == []
