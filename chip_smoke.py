@@ -4,7 +4,7 @@ Run from the root of a checkout:  python3 chip_smoke.py
 
 1. prints the card's name and power limit (nvidia-smi);
 2. builds the port's CUDA kernels (``conv3d_fwd``, ``conv3d_dw``,
-   ``flash_chunk``, ``flash_decode``) from
+   ``flash_chunk``, ``flash_decode``, ``flash_fwd``, ``flash_bwd``) from
    ``src/repro_torch/kernels/*/csrc`` into ``build/kernels/``, one nvcc
    per source, all at once, and prints the build time;
 3. forward: holds the conv3d kernel, through the public entry points
@@ -46,12 +46,26 @@ Run from the root of a checkout:  python3 chip_smoke.py
    prefill launch and 28 ``flash_decode`` launches per decode step), two
    more windows for the spread of generated tok/s, one bf16 window and
    one profiled decode step;
-8. writes every number to ``results/chip_smoke.json``, prints the
+8. LM training: the forward, dq and dk/dv attention kernels against
+   their plain versions at the training shapes (batch 8 x seq 256,
+   qwen2-1.5b heads, causal) in f32 and bf16 on N(0, 1) inputs (O, lse,
+   dq, dk, dv; a second run of each bit for bit), timed beside their
+   bounds and ``scaled_dot_product_attention`` (forward; forward +
+   backward); one training step card vs CPU at full width with the depth
+   cut to 2 layers (loss, grad norm, every gradient and AdamW update
+   leaf); then the LM training main path: full-width qwen2-1.5b from seed
+   0 through ``Engine.fit`` on ``lm_task`` (f32, AdamW on warmup-cosine,
+   clip 1.0, remat, batch 8 x seq 256; counts reset just before, read
+   just after: exactly 56 ``flash_fwd``, 28 ``flash_bwd_dq`` and 28
+   ``flash_bwd_dkv`` launches per step), its step time, tokens/s and peak
+   memory, the same step twice bit for bit, and one profiled step;
+9. writes every number to ``results/chip_smoke.json``, prints the
    kernels' JSON line, the card line again, and as its last line
    ``{"ok": true, "device": {...}}``.
 
 Any failed check raises, so the script exits non-zero and prints no ok
-line.  It needs a CUDA card and the repository's ``src/`` beside it.
+line.  It needs a CUDA card and the repository's ``src/`` beside it;
+without either it prints one line to stderr and exits 1.
 """
 from __future__ import annotations
 
@@ -103,6 +117,30 @@ LM_TOL = 1e-4
 # the sharp-attention check: wq and wk scaled by LM_SHARP, depth cut to
 # LM_SHARP_LAYERS of the 28 layers (the CPU side runs it too)
 LM_SHARP, LM_SHARP_LAYERS = 4.0, 4
+# LM training (full qwen2-1.5b, the reference launcher's settings): f32,
+# AdamW on warmup_cosine(LMT_LR, 20, steps), clip 1.0, remat, batch
+# LMT_BATCH x seq LMT_SEQ; LMT_WARMUP + LMT_STEPS steps through Engine.fit
+LMT_BATCH, LMT_SEQ, LMT_LR = 8, 256, 1e-4
+LMT_WARMUP, LMT_STEPS = 2, 8
+# training attention kernels vs plain, of each output's largest magnitude:
+# f32 sums in another order; bf16 one rounding of the same f32 result
+TOL_TRAIN_ATTN = {"float32": 1e-5, "bfloat16": 1e-2}
+# the LM step card vs CPU: full width, depth cut to LMT_CHECK_LAYERS (the
+# CPU side sets the cut), batch LMT_CHECK_BATCH x seq LMT_CHECK_SEQ.  f32
+# on both sides, sums in another order: loss and grad norm to LMT_LOSS_TOL
+# relative, each gradient leaf to LMT_GRAD_TOL of its largest.  Each AdamW
+# update element (new param minus param) to LMT_UPD_TOL of its leaf's
+# largest, plus one f32 spacing at the param (the two sides' p + u may
+# round to neighbours), plus what the two sides' (clipped) gradients a, b
+# make of it through Adam's first step -lr * (g / (|g| + eps) + wd * p):
+# f(g) = g / (|g| + eps) has slope eps / (|g| + eps)^2, so |f(a) - f(b)| <=
+# eps |a - b| / (d + eps)^2 with d the distance from 0 to [a, b] (0 when
+# the signs differ).  Where |g| is near eps = 1e-8 that step takes any
+# value in (-lr, lr), and there the last bits of the gradient's sums
+# decide it.
+LMT_CHECK_LAYERS, LMT_CHECK_BATCH, LMT_CHECK_SEQ = 2, 2, 128
+LMT_LOSS_TOL, LMT_GRAD_TOL, LMT_UPD_TOL, ADAM_EPS = 1e-5, 1e-4, 1e-3, 1e-8
+F32_SPACING = 2.0 ** -23          # f32 spacing at x is at most this * |x|
 
 
 def check(cond, msg):
@@ -1611,6 +1649,398 @@ def lm_serve_phase(cfg, params, card):
                         "kernels": kernels[:12]}}
 
 
+# ---------------------------------------------------------------------------
+# LM training: the attention kernels, one step card vs CPU, the main path
+# ---------------------------------------------------------------------------
+
+
+def train_attention_work(B, S, T, H, KH, D, dname, causal=True, window=0):
+    """{kernel: (bound ms, "bytes" | "operations", bytes, flops)} of the
+    three training attention kernels on these shapes: 2 * D flops per
+    visible (query head, key) pair and product (forward: q.k and p.v; dq:
+    q.k, dO.v and ds.k; dk/dv: those two and p^T.dO, ds^T.q), against each
+    input read once and each output written once."""
+    qpos = np.arange(S)[:, None]
+    kpos = np.arange(T)[None]
+    vis = np.ones((S, T), bool)
+    if causal:
+        vis &= qpos >= kpos
+    if window:
+        vis &= kpos > qpos - window
+    pairs = B * H * int(vis.sum())
+    esize = 4 if dname == "float32" else 2
+    q_el, kv_el, rows = B * S * H * D, B * T * KH * D, B * S * H
+    work = {"flash_fwd": (2, (2 * q_el + 2 * kv_el) * esize + 4 * rows),
+            "flash_bwd_dq": (3, (3 * q_el + 2 * kv_el) * esize + 8 * rows),
+            "flash_bwd_dkv": (4, (2 * q_el + 4 * kv_el) * esize + 8 * rows)}
+    out = {}
+    for name, (products, nbytes) in work.items():
+        flops = 2 * D * pairs * products
+        out[name] = (*layer_bound(flops / 2, nbytes, dname), nbytes, flops)
+    return out
+
+
+def train_attention_phase(cfg):
+    """The three training attention kernels against their plain versions at
+    the LM training path's shapes (batch 8 x seq 256, qwen2-1.5b heads,
+    causal), f32 and bf16 on N(0, 1) inputs: O, lse, dq, dk and dv; each
+    kernel twice on the same inputs, bit for bit; kernel, plain and SDPA
+    times (forward; forward + backward with the KV heads expanded) beside
+    each kernel's bound."""
+    import torch
+    from repro_torch.kernels.flash_attention import flash_attention as fa
+    from repro_torch.kernels.flash_attention import ref
+    B, S, H, KH, D = LMT_BATCH, LMT_SEQ, cfg.n_heads, cfg.n_kv_heads, cfg.d_head
+    G = H // KH
+    gen = torch.Generator(device="cuda").manual_seed(23)
+    rows = []
+    n0 = (fa.FWD_LAUNCHES, fa.DQ_LAUNCHES, fa.DKV_LAUNCHES)
+    for dtype in (torch.float32, torch.bfloat16):
+        dname = str(dtype).replace("torch.", "")
+        q, do = (torch.randn((B, S, H, D), generator=gen, device="cuda").to(
+            dtype) for _ in range(2))
+        k, v = (torch.randn((B, S, KH, D), generator=gen, device="cuda").to(
+            dtype) for _ in range(2))
+        o, lse = fa.flash_attention_fwd(q, k, v, return_lse=True)
+        delta = ref.attention_delta(o, do)
+        dq = fa.flash_bwd_dq(q, k, v, do, lse, delta)
+        dk, dv = fa.flash_bwd_dkv(q, k, v, do, lse, delta)
+        po, plse = ref.flash_fwd_ref(q, k, v)
+        pdq = ref.flash_bwd_dq_ref(q, k, v, do, lse, delta)
+        pdk, pdv = ref.flash_bwd_dkv_ref(q, k, v, do, lse, delta)
+        again = (*fa.flash_attention_fwd(q, k, v, return_lse=True),
+                 fa.flash_bwd_dq(q, k, v, do, lse, delta),
+                 *fa.flash_bwd_dkv(q, k, v, do, lse, delta))
+        torch.cuda.synchronize()
+        abs_errs = {n: float((a.float() - b.float()).abs().max())
+                    for n, a, b in (("o", o, po), ("dq", dq, pdq),
+                                    ("dk", dk, pdk), ("dv", dv, pdv))}
+        errs = {n: e / float(b.float().abs().max()) for (n, e), b in
+                zip(abs_errs.items(), (po, pdq, pdk, pdv))}
+        lse_err = float(((lse - plse).abs() / plse.abs().clamp_min(1.0)).max())
+        same = all(torch.equal(a, b) for a, b in
+                   zip((o, lse, dq, dk, dv), again))
+        # the yardstick: SDPA on (B, H, S, D) with the KV heads expanded
+        qt, dot = (t.transpose(1, 2).contiguous() for t in (q, do))
+        kt, vt = (t.repeat_interleave(G, dim=2).transpose(1, 2).contiguous()
+                  for t in (k, v))
+        sdpa = lambda: torch.nn.functional.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=True)
+        leaves = [t.detach().requires_grad_() for t in (qt, kt, vt)]
+
+        def sdpa_fwd_bwd():
+            out = torch.nn.functional.scaled_dot_product_attention(
+                *leaves, is_causal=True)
+            torch.autograd.grad(out, leaves, dot)
+
+        lib_err = float((sdpa().transpose(1, 2).float() - po.float()).abs()
+                        .max()) / float(po.float().abs().max())
+        times = {
+            "flash_fwd": (lambda: fa.flash_attention_fwd(q, k, v,
+                                                         return_lse=True),
+                          lambda: ref.flash_fwd_ref(q, k, v), sdpa,
+                          "SDPA forward"),
+            "flash_bwd_dq": (lambda: fa.flash_bwd_dq(q, k, v, do, lse, delta),
+                             lambda: ref.flash_bwd_dq_ref(q, k, v, do, lse,
+                                                          delta),
+                             sdpa_fwd_bwd, "SDPA forward + backward"),
+            "flash_bwd_dkv": (lambda: fa.flash_bwd_dkv(q, k, v, do, lse,
+                                                       delta),
+                              lambda: ref.flash_bwd_dkv_ref(q, k, v, do, lse,
+                                                            delta),
+                              sdpa_fwd_bwd, "SDPA forward + backward"),
+        }
+        bounds = train_attention_work(B, S, S, H, KH, D, dname)
+        err_of = {"flash_fwd": max(errs["o"], lse_err),
+                  "flash_bwd_dq": errs["dq"],
+                  "flash_bwd_dkv": max(errs["dk"], errs["dv"])}
+        abs_of = {"flash_fwd": max(abs_errs["o"],
+                                   float((lse - plse).abs().max())),
+                  "flash_bwd_dq": abs_errs["dq"],
+                  "flash_bwd_dkv": max(abs_errs["dk"], abs_errs["dv"])}
+        lib_ms = {}
+        for name, (kern, plain, lib, lib_what) in times.items():
+            ms_k, ms_p = cuda_ms(kern), cuda_ms(plain)
+            if lib not in lib_ms:
+                lib_ms[lib] = cuda_ms(lib)
+            bound, by, nbytes, flops = bounds[name]
+            rows.append({"kernel": name, "dtype": dname,
+                         "q": [B, S, H, D], "kv": [B, S, KH, D],
+                         "max_abs_err": abs_of[name],
+                         "max_err_of_largest": err_of[name], "ms": ms_k,
+                         "plain_ms": ms_p, "library_ms": lib_ms[lib],
+                         "library": lib_what, "bound_ms": bound,
+                         "bound_by": by, "mbytes": nbytes / 1e6,
+                         "gflop": flops / 1e9, "repeat_identical": same})
+            print(f"  {name:13s} {dname:8s} err/largest {err_of[name]:.2e} "
+                  f"(tolerance {TOL_TRAIN_ATTN[dname]}); kernel_ms={ms_k:.4f} "
+                  f"plain_ms={ms_p:.4f} library_ms={lib_ms[lib]:.4f} "
+                  f"({lib_what}) bound_ms={bound:.4f} ({by})", flush=True)
+        print(f"  {dname}: O {errs['o']:.2e}, lse {lse_err:.2e}, dq "
+              f"{errs['dq']:.2e}, dk {errs['dk']:.2e}, dv {errs['dv']:.2e} of "
+              f"their largest; a second run bit-identical: {same}; SDPA vs "
+              f"plain {lib_err:.2e}", flush=True)
+        tol = TOL_TRAIN_ATTN[dname]
+        check(max(errs.values()) <= tol and lse_err <= 1e-5,
+              f"training attention {dname}: kernels disagree with plain "
+              f"({errs}, lse {lse_err})")
+        check(same, f"training attention {dname}: a second run differs")
+        check(lib_err <= 10 * tol, f"SDPA {dname} is not the same function "
+                                   f"({lib_err})")
+        del q, k, v, do, o, lse, dq, dk, dv, po, pdq, pdk, pdv, again, leaves
+    # launches made to compare and time are not main-path launches
+    fa.FWD_LAUNCHES, fa.DQ_LAUNCHES, fa.DKV_LAUNCHES = n0
+    return rows
+
+
+def lm_train_check_phase(cfg):
+    """One LM training step, card (kernels) vs CPU (plain versions), from
+    the same parameters (seed 0) and tokens (numpy): full width, depth cut
+    to LMT_CHECK_LAYERS (the CPU side sets the cut), batch LMT_CHECK_BATCH
+    x seq LMT_CHECK_SEQ; AdamW on warmup_cosine(LMT_LR, 20, LMT_STEPS),
+    clip 1.0.  Loss, grad norm, each gradient leaf (the step's own clipped
+    gradient, read back from AdamW's first moment m = (1 - b1) g) and each
+    AdamW update leaf, leaf by leaf."""
+    import torch
+    from repro_torch.kernels.flash_attention import flash_attention as fa
+    from repro_torch.models import api, lm
+    from repro_torch.optim import optimizers as opt_lib
+    from repro_torch.substrate.precision import get_policy, tree_map
+    from repro_torch.train import steps as steps_lib
+    cut = dataclasses.replace(cfg, n_layers=LMT_CHECK_LAYERS)
+    params = lm.init(torch.Generator().manual_seed(0), cut, "cpu")
+    tokens = np.random.default_rng(8).integers(
+        0, cfg.vocab, (LMT_CHECK_BATCH, LMT_CHECK_SEQ)).astype(np.int32)
+    schedule = opt_lib.warmup_cosine(LMT_LR, 20, LMT_STEPS)
+    lr1 = float(schedule(torch.ones((), dtype=torch.int32)))
+    b1 = 0.9
+    opt = opt_lib.adamw(schedule, b1=b1, eps=ADAM_EPS)
+    step = steps_lib.make_train_step(api.get_model(cut), cut, opt,
+                                     get_policy("f32"))
+    out = {}
+    for dev in ("cpu", "cuda"):
+        p = tree_map(lambda t: t.to(dev), params)
+        n0 = (fa.FWD_LAUNCHES, fa.DQ_LAUNCHES, fa.DKV_LAUNCHES)
+        t0 = time.perf_counter()
+        new_p, new_s, metrics = step(p, opt.init(p),
+                                     {"tokens": torch.from_numpy(tokens).to(dev)})
+        if dev == "cuda":
+            torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        n = (fa.FWD_LAUNCHES - n0[0], fa.DQ_LAUNCHES - n0[1],
+             fa.DKV_LAUNCHES - n0[2])
+        upd = tree_map(lambda a, b: (a - b).cpu(), new_p, p)
+        grads = tree_map(lambda m: m.cpu() / (1 - b1), new_s["m"])
+        out[dev] = (grads, upd, {k: float(v) for k, v in metrics.items()}, n,
+                    secs)
+    (g_c, u_c, m_c, n_c, s_c), (g_g, u_g, m_g, n_g, s_g) = \
+        out["cpu"], out["cuda"]
+    loss_err = abs(m_g["loss"] - m_c["loss"]) / abs(m_c["loss"])
+    norm_err = abs(m_g["grad_norm"] - m_c["grad_norm"]) / m_c["grad_norm"]
+    p_of = dict(leaf_items(lm_block_tree(params)))
+    grad_err, upd_err, upd_raw, decided = {}, {}, {}, {}
+    for (path, gc), (_, gg), (_, uc), (_, ug) in zip(
+            leaf_items(lm_block_tree(g_c)), leaf_items(lm_block_tree(g_g)),
+            leaf_items(lm_block_tree(u_c)), leaf_items(lm_block_tree(u_g))):
+        grad_err[path] = float((gg - gc).abs().max()) / float(gc.abs().max())
+        diff, top = (ug - uc).abs(), float(uc.abs().max())
+        adam = adam_allowance(gg, gc, lr1)
+        allow = adam + F32_SPACING * p_of[path].abs()
+        upd_err[path] = float((diff - allow).clamp_min(0).max()) / top
+        upd_raw[path] = float(diff.max()) / top
+        decided[path] = float((adam > LMT_UPD_TOL * top).float().mean())
+    worst_g = max(grad_err, key=grad_err.get)
+    worst_u = max(upd_err, key=upd_err.get)
+    worst_r = max(upd_raw, key=upd_raw.get)
+    print(f"  {LMT_CHECK_LAYERS} of {cfg.n_layers} layers at full width, "
+          f"batch {LMT_CHECK_BATCH} x seq {LMT_CHECK_SEQ}, f32: card "
+          f"{s_g:.2f} s, CPU {s_c:.2f} s for the step; loss "
+          f"{m_g['loss']:.6f} vs {m_c['loss']:.6f} (rel {loss_err:.2e}), "
+          f"grad norm {m_g['grad_norm']:.6f} vs {m_c['grad_norm']:.6f} (rel "
+          f"{norm_err:.2e}); tolerance {LMT_LOSS_TOL}", flush=True)
+    print(f"  gradient leaves: worst {worst_g} {grad_err[worst_g]:.2e} of its "
+          f"largest (tolerance {LMT_GRAD_TOL}); AdamW update leaves: worst "
+          f"{worst_u} {upd_err[worst_u]:.2e} of its largest beyond what "
+          f"Adam's first step makes of the gradients' difference (tolerance "
+          f"{LMT_UPD_TOL}) and one f32 spacing at the param; raw, worst "
+          f"{worst_r} {upd_raw[worst_r]:.2e}; elements where that allowance "
+          f"passes {LMT_UPD_TOL} of the largest: at most "
+          f"{100 * max(decided.values()):.3f}% of a leaf; "
+          f"launches on the card: {n_g}", flush=True)
+    want_n = (2 * LMT_CHECK_LAYERS, LMT_CHECK_LAYERS, LMT_CHECK_LAYERS)
+    check(loss_err <= LMT_LOSS_TOL and norm_err <= LMT_LOSS_TOL,
+          f"LM step card vs CPU: loss {loss_err}, grad norm {norm_err}")
+    check(grad_err[worst_g] <= LMT_GRAD_TOL,
+          f"LM step card vs CPU: gradient {worst_g} {grad_err[worst_g]}")
+    check(upd_err[worst_u] <= LMT_UPD_TOL,
+          f"LM step card vs CPU: update {worst_u} {upd_err[worst_u]}")
+    check(n_g == want_n and n_c == (0, 0, 0),
+          f"LM check launches {n_g} (want {want_n}), CPU {n_c}")
+    return {"loss": [m_g["loss"], m_c["loss"]], "loss_err": loss_err,
+            "grad_norm_err": norm_err, "grad_err": grad_err,
+            "update_err": upd_err, "update_err_raw": upd_raw,
+            "update_rounding_share": decided, "card_s": s_g, "cpu_s": s_c,
+            "launches": list(n_g)}
+
+
+def adam_allowance(a, b, lr):
+    """The most by which Adam's first step, lr * g / (|g| + ADAM_EPS), can
+    differ at gradients a and b: lr * eps |a - b| / (d + eps)^2, d the
+    distance from 0 to the interval [a, b] (the slope's largest there)."""
+    import torch
+    d = torch.where(a * b > 0, torch.minimum(a.abs(), b.abs()),
+                    torch.zeros_like(a))
+    return lr * ADAM_EPS * (a - b).abs() / (d + ADAM_EPS) ** 2
+
+
+def lm_block_tree(params):
+    """The LM tree with its list of per-layer dicts keyed ``blocks/<i>``."""
+    return dict(params, blocks={str(i): b for i, b in
+                                enumerate(params["blocks"])})
+
+
+def lm_train_phase(cfg, card):
+    """The LM training main path: full-width qwen2-1.5b from seed 0 through
+    ``Engine.fit`` on ``lm_task`` (f32, AdamW on warmup_cosine(LMT_LR, 20,
+    steps), clip 1.0, remat), batch LMT_BATCH x seq LMT_SEQ of
+    ``MarkovTokens`` made before the timed window; counts reset just
+    before and read just after; then the same step twice from one state,
+    bit for bit, and one profiled step."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.data.tokens import MarkovTokens
+    from repro_torch.kernels.flash_attention import flash_attention as fa
+    from repro_torch.models import api
+    from repro_torch.optim import optimizers as opt_lib
+    from repro_torch.substrate.precision import get_policy, tree_leaves
+    from repro_torch.train import engine as engine_lib
+
+    n = LMT_WARMUP + LMT_STEPS
+    data = MarkovTokens(cfg.vocab, seed=0)
+    batches = [{"tokens": data.sample(LMT_BATCH, LMT_SEQ)} for _ in range(n)]
+    task = engine_lib.lm_task(
+        api.get_model(cfg), cfg,
+        opt_lib.adamw(opt_lib.warmup_cosine(LMT_LR, 20, n)),
+        policy=get_policy("f32"))
+    eng = engine_lib.Engine("cuda")
+    t0 = time.perf_counter()
+    # held only by this list, popped into fit: no second copy of the
+    # state stays alive through the steps (it would count in the peak)
+    init = [task.init(torch.Generator(device="cuda").manual_seed(0), "cuda")]
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    stamps = []
+
+    def hook(gstep, state):
+        torch.cuda.synchronize()
+        stamps.append(time.perf_counter())
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    # the main path: counts reset just before, read just after
+    fa.FWD_LAUNCHES = fa.DQ_LAUNCHES = fa.DKV_LAUNCHES = 0
+    t_start = time.perf_counter()
+    state, metrics = eng.fit(task, batches, n, seed=0, state=init.pop(),
+                             hooks=(hook,))
+    counts = {"flash_fwd": fa.FWD_LAUNCHES, "flash_bwd_dq": fa.DQ_LAUNCHES,
+              "flash_bwd_dkv": fa.DKV_LAUNCHES}
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    n_params = sum(t.numel() for t in tree_leaves(state.params))
+    step_ms = [1e3 * (b - a) for a, b in zip([t_start] + stamps, stamps)]
+    timed = step_ms[LMT_WARMUP:]
+    med = float(np.median(timed))
+    spread = (max(timed) - min(timed)) / med
+    tok_s = LMT_BATCH * LMT_SEQ / med * 1e3
+    m = {k: float(v) for k, v in metrics.items()}
+    L = cfg.n_layers
+    want = {"flash_fwd": 2 * L * n, "flash_bwd_dq": L * n,
+            "flash_bwd_dkv": L * n}
+    print(f"  {cfg.arch_id}: {n_params:,} params, init on the card "
+          f"{init_s:.1f} s; {n} steps ({LMT_WARMUP} warm-up) of batch "
+          f"{LMT_BATCH} x seq {LMT_SEQ}: step wall ms "
+          f"{[round(t, 1) for t in step_ms]}; median of {LMT_STEPS} "
+          f"{med:.1f} ms, spread (max-min)/median {100 * spread:.1f}%, "
+          f"{tok_s:.0f} tokens/s; peak memory {peak_gb:.2f} GB [{card}]",
+          flush=True)
+    print(f"  launches: {counts} over {n} steps (want {want}: 2 x {L} "
+          f"forward, remat included, and {L} of each backward kernel per "
+          f"step); last step loss {m['loss']:.4f}, grad norm "
+          f"{m['grad_norm']:.4f}", flush=True)
+    check(counts == want, f"LM training launches {counts} (want {want})")
+    check(all(math.isfinite(v) for v in m.values()), f"LM metrics {m}")
+
+    # the same step twice from one state: bit for bit (the first result
+    # waits on the host, so two results never share the card)
+    step = task.make_step()
+    dev_batch = {"tokens": torch.as_tensor(batches[0]["tokens"]).cuda()}
+    a, _ = step(state, dev_batch, None)
+    a_host = [t.cpu() for t in tree_leaves([a.params, a.opt_state])]
+    del a
+    b, _ = step(state, dev_batch, None)
+    same = sum(1 for x, y in zip(a_host, tree_leaves([b.params,
+                                                      b.opt_state]))
+               if torch.equal(x, y.cpu()))
+    print(f"  the same step twice from one state: {same} of {len(a_host)} "
+          f"param and AdamW leaves bit-identical", flush=True)
+    check(same == len(a_host), "two runs of an LM step differ")
+    del a_host, b
+
+    # one profiled step
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        out, _ = step(state, dev_batch, None)
+        torch.cuda.synchronize()
+        wall = 1e3 * (time.perf_counter() - t0)
+    del out
+    kernels = device_kernels(prof)
+    busy = sum(k["ms"] for k in kernels)
+    by_name = {name: sum(k["ms"] for k in kernels if name + "_kernel"
+                         in k["kernel"])
+               for name in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")}
+    print(f"  one f32 step, batch already on the card: wall {wall:.1f} ms",
+          flush=True)
+    if kernels:
+        print(f"  device busy {busy:.1f} ms = {100 * busy / wall:.1f}% of "
+              f"wall; attention kernels {by_name}; by kernel:", flush=True)
+        for k in kernels[:14]:
+            print(f"    {k['ms']:9.3f} ms  x{k['count']:<5d} {k['kernel']}",
+                  flush=True)
+    else:
+        print("  device time: not measured (the profiler saw no device "
+              "activity)", flush=True)
+    return {"params": n_params, "steps": n, "step_ms": step_ms,
+            "median_ms": med, "spread": spread, "tokens_per_s": tok_s,
+            "peak_gb": peak_gb, "init_s": init_s, "counts": counts,
+            "metrics": m, "repeat_identical": same,
+            "profile": {"wall_ms": wall,
+                        "device_ms": busy if kernels else None,
+                        "attention_ms": by_name if kernels else None,
+                        "kernels": kernels[:14]}}
+
+
+def train_attention_entry(rows, name, source, replaces, launches, steps):
+    """The kernels-line entry of one training attention kernel: its f32 row
+    at the path's shapes (the main path runs f32), the bf16 error beside
+    it."""
+    r = next(r for r in rows if r["kernel"] == name
+             and r["dtype"] == "float32")
+    rb = next(r for r in rows if r["kernel"] == name
+              and r["dtype"] == "bfloat16")
+    return {"name": name, "route": "cuda", "source": source,
+            "replaces": replaces, "launches": launches,
+            "launches_per_step": launches // steps,
+            "max_abs_err": r["max_abs_err"],
+            "max_err_of_largest": r["max_err_of_largest"],
+            "max_err_of_largest_bf16": rb["max_err_of_largest"],
+            "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+            "bound_by": r["bound_by"], "library_ms": r["library_ms"],
+            "library": r["library"],
+            "timed": "one f32 call at the LM training path's shapes"}
+
+
 def attention_entry(rows, kind, source, replaces, launches):
     """The kernels-line entry of one attention kernel: its f32 row at the
     path's shapes (the main path runs f32), the bf16 error beside it."""
@@ -1629,6 +2059,10 @@ def attention_entry(rows, kind, source, replaces, launches):
 
 def main() -> int:
     import torch
+    if not os.path.isdir(os.path.join(ROOT, "src", "repro_torch")):
+        print(f"chip smoke: no src/repro_torch beside {__file__}: run it "
+              "from the root of a checkout", file=sys.stderr)
+        return 1
     if not torch.cuda.is_available():
         print("chip smoke: no CUDA card (torch.cuda.is_available() is "
               "False)", file=sys.stderr)
@@ -1696,6 +2130,17 @@ def main() -> int:
           f"{LM_MAX_LEN} positions, chunks of {LM_CHUNK}):", flush=True)
     lm_serve = timed("lm_serve", lm_serve_phase, lm_cfg, lm_params, card)
     del lm_params
+    torch.cuda.empty_cache()
+    print(f"LM training attention kernels vs plain at the qwen2-1.5b "
+          f"training shapes (batch {LMT_BATCH} x seq {LMT_SEQ}, causal, "
+          f"N(0, 1) inputs, TF32 off):", flush=True)
+    train_attn_rows = timed("train_attention", train_attention_phase, lm_cfg)
+    print("LM training step, card vs CPU (qwen2-1.5b at full width, depth "
+          "cut):", flush=True)
+    lm_train_check = timed("lm_train_check", lm_train_check_phase, lm_cfg)
+    print(f"LM training main path (full qwen2-1.5b, f32, AdamW, batch "
+          f"{LMT_BATCH} x seq {LMT_SEQ}, remat):", flush=True)
+    lm_train = timed("lm_train", lm_train_phase, lm_cfg, card)
     print("phase seconds: " + ", ".join(f"{k} {v:.1f}"
                                         for k, v in phases.items()),
           flush=True)
@@ -1738,15 +2183,26 @@ def main() -> int:
         attn_rows, "flash_decode", fa_dir + "flash_decode.cu",
         "src/repro/kernels/flash_attention/decode.py:104",
         lm_serve["counts"]["flash_decode"])
+    train_kernels = [
+        train_attention_entry(
+            train_attn_rows, name, fa_dir + src,
+            "src/repro/kernels/flash_attention/flash_attention.py:" + line,
+            lm_train["counts"][name], lm_train["steps"])
+        for name, src, line in (("flash_fwd", "flash_fwd.cu", "43"),
+                                ("flash_bwd_dq", "flash_bwd.cu", "338"),
+                                ("flash_bwd_dkv", "flash_bwd.cu", "380"))]
     os.makedirs(os.path.join(ROOT, "results"), exist_ok=True)
     with open(os.path.join(ROOT, "results", "chip_smoke.json"), "w") as f:
         json.dump({"card": card, "layers": rows + grad_rows, "e2e": e2e,
                    "check_step": check_step, "train": train,
                    "attention": attn_rows, "decode_splits": splits,
                    "lm_check": lm_check, "lm_serve": lm_serve,
+                   "train_attention": train_attn_rows,
+                   "lm_train_check": lm_train_check, "lm_train": lm_train,
                    "phase_s": phases}, f, indent=1)
     print(card, flush=True)
-    print(json.dumps({"kernels": [fwd, dw, chunk, decode]}), flush=True)
+    print(json.dumps({"kernels": [fwd, dw, chunk, decode, *train_kernels]}),
+          flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -6,7 +6,9 @@ checkpoint), :func:`tree_from_numpy` turns any such tree into tensors
 with the same leaf names, layouts and dtypes, :func:`state_from_numpy`
 builds the port's ``GANState`` from the reference's fields, and
 :func:`generator_from_numpy` carries a generator over as f32 for serving,
-and :func:`lm_from_numpy` a language model's parameters.
+:func:`lm_from_numpy` a language model's parameters and
+:func:`lm_state_from_numpy` its AdamW train state; :func:`lm_to_numpy`
+goes back, stacking the per-layer ``blocks`` as the reference does.
 """
 from __future__ import annotations
 
@@ -78,3 +80,31 @@ def lm_from_numpy(tree, device="cuda") -> dict:
     out["blocks"] = [tree_map(lambda t, i=i: t[i].contiguous(), stacked)
                      for i in range(n_layers)]
     return out
+
+
+def stack_layers(blocks) -> dict:
+    """A list of per-layer dicts -> one dict whose leaves are the layers'
+    tensors stacked on a leading layer axis, on the CPU (the reference's
+    ``blocks`` layout)."""
+    return tree_map(lambda *ts: torch.stack([t.detach().cpu() for t in ts]),
+                    blocks[0], *blocks[1:])
+
+
+def lm_to_numpy(params) -> dict:
+    """The port's LM parameters -> the reference's ``models/lm.init`` tree
+    as numpy: ``blocks`` stacked on a leading layer axis (the inverse of
+    :func:`lm_from_numpy`)."""
+    return {k: tree_to_numpy(stack_layers(v) if k == "blocks" else v)
+            for k, v in params.items()}
+
+
+def lm_state_from_numpy(params, opt_state, device="cuda"):
+    """The port's ``LMState`` from the reference's LM params and AdamW state
+    (``{"step", "m", "v"}``, ``m`` and ``v`` shaped like the params) as
+    numpy trees."""
+    from repro_torch.train.engine import LMState
+    opt = {"step": torch.tensor(int(np.asarray(opt_state["step"])),
+                                dtype=torch.int32, device=device),
+           "m": lm_from_numpy(opt_state["m"], device),
+           "v": lm_from_numpy(opt_state["v"], device)}
+    return LMState(lm_from_numpy(params, device), opt)

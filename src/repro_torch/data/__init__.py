@@ -1,1 +1,2 @@
-"""Data sources of the port (the synthetic calorimeter Monte Carlo)."""
+"""Data sources of the port (the synthetic calorimeter Monte Carlo and the
+Markov token stream)."""

@@ -1,1 +1,2 @@
-"""Serving attention kernels: split-KV decode and chunked prefill."""
+"""Attention kernels: split-KV decode and chunked prefill for serving; the
+flash forward and its dq and dk/dv backward for training."""

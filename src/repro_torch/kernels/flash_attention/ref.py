@@ -1,7 +1,8 @@
-"""Plain PyTorch versions of the serving attention kernels.
+"""Plain PyTorch versions of the attention kernels.
 
 Written from the reference's Pallas kernels (``decode.py`` ``_decode_kernel``
-and ``combine_splits``, ``flash_attention.py`` ``_flash_chunk_kernel``):
+and ``combine_splits``, ``flash_attention.py`` ``_flash_chunk_kernel``,
+``_flash_kernel``, ``_flash_bwd_dq_kernel`` and ``_flash_bwd_dkv_kernel``):
 the same masks, f32 score and softmax math, the same split structure for
 decode (unnormalised per-split ``(acc, m, l)`` merged by log-sum-exp) and
 exact zeros for rows that see no key.  The scores are materialised, so
@@ -111,3 +112,99 @@ def split_geometry(T: int, block_kv: int, num_splits: int):
     blocks_per_split = -(-n_blocks // max(1, num_splits))
     n_splits = -(-n_blocks // blocks_per_split)
     return blocks_per_split * block_kv, n_splits
+
+
+# ---------------------------------------------------------------------------
+# training: the forward with its log-sum-exp, and the recompute backward
+# ---------------------------------------------------------------------------
+
+
+def train_mask(S: int, T: int, causal: bool, window: int, device):
+    """(S, T) bool: query i sees key t when t <= i (causal) and, with a
+    window, t > i - window (the reference's ``_tile_mask``)."""
+    qpos = torch.arange(S, device=device)[:, None]
+    kpos = torch.arange(T, device=device)[None]
+    mask = torch.ones((S, T), dtype=torch.bool, device=device)
+    if causal:
+        mask = mask & (qpos >= kpos)
+    if window:
+        mask = mask & (kpos > qpos - window)
+    return mask
+
+
+def _scores(q, k):
+    """f32 scores (B, KH, G, S, T) of q (B, S, H, D) against k (B, T, KH, D),
+    query head ``kh * G + g``, scaled by 1 / sqrt(D)."""
+    B, S, H, D = q.shape
+    KH = k.shape[2]
+    qg = q.float().reshape(B, S, KH, H // KH, D)
+    return torch.einsum("bskgd,btkd->bkgst", qg, k.float()) * (1.0 / D ** 0.5)
+
+
+def _rows(x, KH):
+    """(B, S, H) per-row values -> (B, KH, G, S, 1), beside the scores."""
+    B, S, H = x.shape
+    return x.float().reshape(B, S, KH, H // KH).permute(0, 2, 3, 1)[..., None]
+
+
+def flash_fwd_ref(q, k, v, *, causal: bool = True, window: int = 0):
+    """Causal / windowed GQA attention over a whole sequence.
+
+    q: (B, S, H, D); k/v: (B, T, KH, D).  Returns O (B, S, H, D) in q's
+    dtype and the f32 log-sum-exp (B, S, H), head ``kh * G + g``.  A row
+    that sees no key is exact zeros with lse = -1e30 + log(1e-30)."""
+    B, S, H, D = q.shape
+    T, KH = k.shape[1], k.shape[2]
+    mask = train_mask(S, T, causal, window, q.device)
+    s = _scores(q, k).masked_fill(~mask, NEG_INF)
+    m = s.amax(dim=-1, keepdim=True)
+    e = torch.where(mask, torch.exp(s - m), torch.zeros_like(s))
+    l = e.sum(dim=-1, keepdim=True).clamp_min(1e-30)
+    o = torch.einsum("bkgst,btkd->bskgd", e, v.float()) \
+        / l.permute(0, 3, 1, 2, 4)
+    lse = (m + torch.log(l))[..., 0].permute(0, 3, 1, 2)     # (B, S, KH, G)
+    return o.reshape(B, S, H, D).to(q.dtype), lse.reshape(B, S, H)
+
+
+def attention_delta(o, do):
+    """``rowsum(dO * O)`` in f32, (B, S, H): the softmax-jacobian row
+    correction the backward kernels take (the reference computes it
+    outside its kernels too)."""
+    return (do.float() * o.float()).sum(dim=-1)
+
+
+def _probs_and_ds(q, k, v, do, lse, delta, causal, window):
+    """The backward tile math on whole rows: p = exp(s - lse), exactly 0
+    where masked, and ds = p * (dO . v - delta) * scale, both
+    (B, KH, G, S, T) f32."""
+    B, S, H, D = q.shape
+    T, KH = k.shape[1], k.shape[2]
+    mask = train_mask(S, T, causal, window, q.device)
+    p = torch.where(mask, torch.exp(_scores(q, k) - _rows(lse, KH)),
+                    torch.zeros((), device=q.device))
+    dog = do.float().reshape(B, S, KH, H // KH, D)
+    dp = torch.einsum("bskgd,btkd->bkgst", dog, v.float())
+    return p, p * (dp - _rows(delta, KH)) * (1.0 / D ** 0.5)
+
+
+def flash_bwd_dq_ref(q, k, v, do, lse, delta, *, causal: bool = True,
+                     window: int = 0):
+    """dq (B, S, H, D) in q's dtype: ds . k over the keys each row sees."""
+    B, S, H, D = q.shape
+    _, ds = _probs_and_ds(q, k, v, do, lse, delta, causal, window)
+    dq = torch.einsum("bkgst,btkd->bskgd", ds, k.float())
+    return dq.reshape(B, S, H, D).to(q.dtype)
+
+
+def flash_bwd_dkv_ref(q, k, v, do, lse, delta, *, causal: bool = True,
+                      window: int = 0):
+    """(dk, dv), each (B, T, KH, D) in k's dtype: ds^T . q and p^T . dO,
+    summed over the G query heads of each KV head."""
+    B, S, H, D = q.shape
+    KH = k.shape[2]
+    p, ds = _probs_and_ds(q, k, v, do, lse, delta, causal, window)
+    qg = q.float().reshape(B, S, KH, H // KH, D)
+    dog = do.float().reshape(B, S, KH, H // KH, D)
+    dk = torch.einsum("bkgst,bskgd->btkd", ds, qg)
+    dv = torch.einsum("bkgst,bskgd->btkd", p, dog)
+    return dk.to(k.dtype), dv.to(v.dtype)

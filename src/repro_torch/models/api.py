@@ -1,5 +1,5 @@
-"""Model API of the port: the serving functions of one architecture
-family, under the reference's ``models/api.py`` names.
+"""Model API of the port: the training and serving functions of one
+architecture family, under the reference's ``models/api.py`` names.
 
 Only the dense language-model family is ported; ``get_model`` raises for
 the others.
@@ -13,6 +13,7 @@ from repro_torch.models import lm
 
 class Model(NamedTuple):
     init: Callable
+    loss_fn: Callable
     init_cache: Callable
     decode_step: Callable
     prefill_chunk: Callable          # chunked batched prefill
@@ -20,4 +21,5 @@ class Model(NamedTuple):
 
 def get_model(cfg) -> Model:
     lm.check_supported(cfg)
-    return Model(lm.init, lm.init_cache, lm.decode_step, lm.prefill_chunk)
+    return Model(lm.init, lm.loss_fn, lm.init_cache, lm.decode_step,
+                 lm.prefill_chunk)

@@ -1,25 +1,30 @@
-"""Decoder-only language model of the dense family, serving path.
+"""Decoder-only language model of the dense family: training and serving.
 
-A copy of the reference's ``models/lm.py`` for what serving runs:
-``init``, the KV cache, one decode step and one batched prefill chunk.
-Parameters keep the reference's leaf names and ``(d_in, d_out)`` dense
-layouts; ``blocks`` is a list of the ``n_layers`` per-layer dicts (the
-reference stacks them on a leading axis for ``lax.scan``; the port runs a
-Python loop over the layers).  The cache is ``{"k", "v"}`` of shape
-(L, B, T, KH, D), as in the reference.
+A copy of the reference's ``models/lm.py`` for the dense family: ``init``,
+the training forward (``apply_block``, ``backbone``, ``forward``, the
+chunked cross-entropy and ``loss_fn``), the KV cache, one decode step and
+one batched prefill chunk.  Parameters keep the reference's leaf names and
+``(d_in, d_out)`` dense layouts; ``blocks`` is a list of the ``n_layers``
+per-layer dicts (the reference stacks them on a leading axis for
+``lax.scan``; the port runs a Python loop over the layers, and
+``convert.lm_to_numpy`` stacks them back).  The cache is ``{"k", "v"}`` of
+shape (L, B, T, KH, D), as in the reference.
 
 The port writes the cache IN PLACE (the reference returns a new one):
 ``decode_step`` and ``prefill_chunk`` return the same tensors they were
-given, updated.  Attention goes through ``substrate.attention.attend``:
-the CUDA kernels on a card, their plain versions on the CPU.
+given, updated.  Remat is ``torch.utils.checkpoint`` per block, whose
+recompute runs the block's attention forward again.  Attention goes
+through ``substrate.attention.attend``: the CUDA kernels on a card, their
+plain versions on the CPU.
 
-Other families (MoE, the VLM's M-RoPE), sliding-window attention and
-training are not ported yet: ``check_supported`` raises on them.
+Other families (MoE, the VLM's M-RoPE) and sliding-window attention are
+not ported yet: ``check_supported`` raises on them.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.substrate import attention as attn_lib
 from repro_torch.substrate import layers
@@ -86,21 +91,102 @@ def _ints(x, device, dtype=torch.int32):
     return x.to(device=device, dtype=dtype)
 
 
-def _block(bp, h, cos, sin, kc, vc, write, cfg, attend_kw):
-    """One block over h (B, S, d): norm, QKV, rope, the cache write
-    ``write(cache_layer, new)``, attention against the layer's cache,
+def _block(bp, h, cos, sin, cfg, attend):
+    """One block over h (B, S, d): norm, QKV, rope, ``attend(q, k, v)``,
     output projection, FFN, both residuals."""
     B, S, _ = h.shape
     hn = layers.apply_norm(bp["ln1"], h, norm_type=cfg.norm_type)
     q, k, v = attn_lib.project_qkv(bp["attn"], hn, cfg)
     q = attn_lib.apply_rope(q, cos, sin)
     k = attn_lib.apply_rope(k, cos, sin)
-    write(kc, k)
-    write(vc, v)
-    o = attn_lib.attend(q, kc.to(q.dtype), vc.to(q.dtype), **attend_kw)
+    o = attend(q, k, v)
     h = h + layers.apply_dense(bp["attn"]["wo"], o.reshape(B, S, cfg.q_dim))
     hn = layers.apply_norm(bp["ln2"], h, norm_type=cfg.norm_type)
     return h + layers.apply_ffn(bp["ffn"], hn)
+
+
+def _cached(kc, vc, write, **attend_kw):
+    """Serving attention: ``write(cache_layer, new)`` the block's K and V
+    into the layer's cache, then attend against the cache."""
+    def attend(q, k, v):
+        write(kc, k)
+        write(vc, v)
+        return attn_lib.attend(q, kc.to(q.dtype), vc.to(q.dtype),
+                               **attend_kw)
+    return attend
+
+
+# ---------------------------------------------------------------------------
+# training
+# ---------------------------------------------------------------------------
+
+
+def apply_block(p, x, cos, sin, cfg):
+    """x: (B, S, d) -> x' (B, S, d), causal attention over the sequence."""
+    return _block(p, x, cos, sin, cfg, attn_lib.attend)
+
+
+def backbone(params, x, cfg, *, positions):
+    """x: (B, S, d) embedded input -> final hidden states (B, S, d).  Each
+    block is checkpointed (the reference launcher's remat): only its input
+    is kept, and the backward recomputes the block (its attention kernel
+    included)."""
+    cos, sin = _rope_for(cfg, positions, x.dtype)
+    for bp in params["blocks"]:
+        x = checkpoint(apply_block, bp, x, cos, sin, cfg, use_reentrant=False)
+    return layers.apply_norm(params["ln_f"], x, norm_type=cfg.norm_type)
+
+
+def forward(params, tokens, cfg, *, policy):
+    """tokens (B, S) int -> (final hidden states (B, S, d), aux, the
+    parameters cast to the compute dtype).  Hidden states, not logits: the
+    loss takes the head in chunks.  ``aux`` is the reference's MoE
+    auxiliary loss, 0 for the dense family."""
+    cparams = policy.cast_to_compute(params)
+    x = layers.apply_embed(cparams["embed"], tokens.long(),
+                           policy.compute_dtype)
+    B, S, _ = x.shape
+    positions = torch.arange(S, device=x.device).expand(B, S)
+    h = backbone(cparams, x, cfg, positions=positions)
+    return h, torch.zeros((), device=x.device), cparams
+
+
+def chunked_softmax_xent(h, head_w, targets, valid, chunk=512):
+    """Mean cross-entropy over the vocabulary, ``chunk`` positions of the
+    (B, S, V) logits at a time (the reference's chunks: ``min(chunk, S)``
+    each, then the remainder).
+
+    h: (B, S, d) hidden; head_w: (d, V); targets: (B, S) int; valid: (B, S)
+    f32 weights."""
+    S = h.shape[1]
+    chunk = min(chunk, S)
+    loss_sum = torch.zeros((), device=h.device)
+    cnt = torch.zeros((), device=h.device)
+    for s0 in range(0, S, chunk):
+        hs, vs = h[:, s0:s0 + chunk], valid[:, s0:s0 + chunk]
+        logits = (hs @ head_w.to(hs.dtype)).float()
+        lse = torch.logsumexp(logits, dim=-1)
+        tgt = logits.gather(-1, targets[:, s0:s0 + chunk, None].long())[..., 0]
+        loss_sum = loss_sum + ((lse - tgt) * vs).sum()
+        cnt = cnt + vs.sum()
+    return loss_sum / cnt.clamp_min(1.0)
+
+
+def loss_fn(params, batch, cfg, *, policy):
+    """Next-token cross-entropy of ``batch["tokens"]`` (B, S) -> (loss,
+    {"ce", "aux"})."""
+    tokens = batch["tokens"]
+    h, aux, cparams = forward(params, tokens, cfg, policy=policy)
+    targets = tokens[:, 1:]
+    valid = torch.ones(targets.shape, device=h.device)
+    ce = chunked_softmax_xent(h[:, :-1], _head_matrix(cparams), targets,
+                              valid)
+    return ce + aux, {"ce": ce, "aux": aux}
+
+
+# ---------------------------------------------------------------------------
+# serving
+# ---------------------------------------------------------------------------
 
 
 def decode_step(params, tokens1, cache, pos, cfg, *, policy):
@@ -126,8 +212,8 @@ def decode_step(params, tokens1, cache, pos, cfg, *, policy):
 
     h = x
     for bp, kc, vc in zip(cparams["blocks"], cache["k"], cache["v"]):
-        h = _block(bp, h, cos, sin, kc, vc, write, cfg,
-                   dict(kv_len=kv_len))
+        h = _block(bp, h, cos, sin, cfg,
+                   _cached(kc, vc, write, kv_len=kv_len))
     h = layers.apply_norm(cparams["ln_f"], h, norm_type=cfg.norm_type)
     logits = h @ _head_matrix(cparams).to(h.dtype)
     return logits.float(), cache
@@ -169,8 +255,8 @@ def prefill_chunk(params, tokens, cache, pos, lens, cfg, *, policy):
 
     h = x
     for bp, kc, vc in zip(cparams["blocks"], cache["k"], cache["v"]):
-        h = _block(bp, h, cos, sin, kc, vc, write, cfg,
-                   dict(kv_len=kv_len, q_offset=pos_d))
+        h = _block(bp, h, cos, sin, cfg,
+                   _cached(kc, vc, write, kv_len=kv_len, q_offset=pos_d))
     last = (lens_d.long() - 1).clamp(0, C - 1)
     h_last = h[torch.arange(B, device=dev), last][:, None]      # (B, 1, d)
     h_last = layers.apply_norm(cparams["ln_f"], h_last,

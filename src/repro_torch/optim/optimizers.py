@@ -1,5 +1,6 @@
 """Optimizers as pure functions over nested dicts of tensors: SGD, Adam,
-AdamW, RMSprop (the reference's `optim/optimizers.py`, no optax).
+AdamW, RMSprop, the global-norm clip and the warmup-cosine schedule (the
+reference's `optim/optimizers.py`, no optax).
 
 Each optimizer is an :class:`Optimizer` pair ``init(params) -> state`` and
 ``update(grads, state, params) -> (updates, state)``; updates are ADDED to
@@ -9,6 +10,7 @@ and a skipped update never sync the host.  The 3DGAN trains with RMSprop.
 """
 from __future__ import annotations
 
+import math
 from typing import Callable, NamedTuple, Union
 
 import torch
@@ -114,8 +116,44 @@ def rmsprop(lr: ScheduleOrFloat, decay=0.9, eps=1e-8, momentum=0.0):
     return Optimizer(init, update)
 
 
+# ---------------------------------------------------------------------------
+# gradient transforms
+# ---------------------------------------------------------------------------
+
+
+def global_norm(tree) -> torch.Tensor:
+    """sqrt of the sum over leaves of each leaf's f32 sum of squares."""
+    return torch.sqrt(torch.stack([x.float().square().sum()
+                                   for x in tree_leaves(tree)]).sum())
+
+
+def clip_by_global_norm(grads, max_norm: float):
+    """(grads scaled by min(1, max_norm / norm), norm)."""
+    g = global_norm(grads)
+    scale = torch.clamp(max_norm / torch.clamp_min(g, 1e-9), max=1.0)
+    return tree_map(lambda x: x * scale.to(x.dtype), grads), g
+
+
 def apply_updates(params, updates):
     return tree_map(lambda p, u: p + u.to(p.dtype), params, updates)
+
+
+# ---------------------------------------------------------------------------
+# schedules
+# ---------------------------------------------------------------------------
+
+
+def warmup_cosine(peak_lr: float, warmup: int, total: int, floor: float = 0.1):
+    """Linear warmup to ``peak_lr`` over ``warmup`` steps, then a cosine
+    decay to ``floor * peak_lr`` at step ``total``."""
+    def schedule(step):
+        step = step.float()
+        warm = peak_lr * step / max(warmup, 1)
+        frac = torch.clamp((step - warmup) / max(total - warmup, 1), 0.0, 1.0)
+        cos = peak_lr * (floor + (1 - floor) * 0.5
+                         * (1 + torch.cos(math.pi * frac)))
+        return torch.where(step < warmup, warm, cos)
+    return schedule
 
 
 def constant(lr: float):

@@ -1,13 +1,14 @@
 """Attention substrate of the port: GQA projections, rotary embeddings
-and the serving router.
+and the attention router.
 
-:func:`attend` routes serving calls (a per-row ``kv_len``) to the kernels'
-wrappers: a single query with no ``q_offset`` to split-KV decode, a
-prompt chunk with ``q_offset`` to chunked prefill.  Each wrapper launches
-its CUDA kernel on a CUDA tensor and runs its plain version on a CPU
-tensor.  The training branch (the reference's ``flash_attention`` /
-``blockwise_attention``) is not ported yet and raises; nor is the
-reference's plain ``dot_attention``.
+:func:`attend` routes every call to a kernel's wrapper: training (no
+``kv_len``) to the differentiable flash attention (``ops.flash_attention``:
+the forward kernel, and the dq and dk/dv kernels in the backward);
+serving calls (a per-row ``kv_len``) to split-KV decode for a single
+query with no ``q_offset``, or to chunked prefill for a prompt chunk with
+``q_offset``.  Each wrapper launches its CUDA kernel on a CUDA tensor and
+runs its plain version on a CPU tensor, so the port needs none of the
+reference's pure-JAX routes (``dot_attention``, ``blockwise_attention``).
 """
 from __future__ import annotations
 
@@ -57,17 +58,17 @@ def project_qkv(p, x, cfg):
 
 
 def attend(q, k, v, *, kv_len=None, q_offset=None):
-    """Serving attention router (the reference's ``attend`` with a
-    ``kv_len``, on its kernel route), causal and without a window.
+    """Attention router (the reference's ``attend`` on its kernel route),
+    causal and without a window.
 
-    q: (B, S, H, D); k/v: (B, T, KH, D) cache; kv_len: (B,) live lengths.
-    A single query without ``q_offset`` goes to split-KV decode; otherwise
-    the queries go to chunked prefill at ``q_offset`` (default
-    ``kv_len - 1``)."""
+    q: (B, S, H, D); k/v: (B, T, KH, D).  Without ``kv_len`` (training)
+    query i attends keys 0..i through the differentiable flash attention.
+    With ``kv_len`` (B,) live cache lengths (serving), a single query
+    without ``q_offset`` goes to split-KV decode; otherwise the queries go
+    to chunked prefill at ``q_offset`` (default ``kv_len - 1``)."""
     if kv_len is None:
-        raise NotImplementedError(
-            "training attention (the reference's flash_attention / "
-            "blockwise_attention) is not ported yet; see ROADMAP.md")
+        from repro_torch.kernels.flash_attention.ops import flash_attention
+        return flash_attention(q, k, v, True, 0)
     if q.shape[1] == 1 and q_offset is None:
         from repro_torch.kernels.flash_attention.decode import flash_decode
         return flash_decode(q, k, v, kv_len)

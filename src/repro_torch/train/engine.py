@@ -1,13 +1,14 @@
 """Training engine of the port: one device, the paper's fused loop.
 
-The reference's engine (`train/engine.py`) runs Algorithm 1 data-parallel
-over a mesh in two loop strategies, ``builtin`` (jit + GSPMD) and
-``custom`` (shard_map + explicit psum).  On one device the two are the
-same program; the port has the single-device ``builtin`` loop: the fused
-step (`core/adversarial.py`), a host-to-device prefetch one batch ahead,
-and windowed metric logging with one host transfer per window.  The
-``custom`` loop, meshes and ZeRO-1 wait for the data-parallel slice
-(ROADMAP, Queue 4).
+The reference's engine (`train/engine.py`) runs its tasks (Algorithm 1,
+or any LM through ``steps.make_train_step``) data-parallel over a mesh in
+two loop strategies, ``builtin`` (jit + GSPMD) and ``custom`` (shard_map +
+explicit psum).  On one device the two are the same program; the port has
+the single-device ``builtin`` loop: the task's step (``gan_task``: the
+fused step of `core/adversarial.py`; ``lm_task``: `train/steps.py`), a
+host-to-device prefetch one batch ahead, and windowed metric logging with
+one host transfer per window.  The ``custom`` loop, meshes and ZeRO-1 wait
+for the data-parallel slice (ROADMAP.md, Queue 1).
 
 Usage::
 
@@ -26,7 +27,7 @@ from __future__ import annotations
 
 import dataclasses
 import time
-from typing import Any, Callable, Iterable, Optional
+from typing import Any, Callable, Iterable, NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -73,6 +74,41 @@ def gan_task(cfg, g_optimizer, d_optimizer, *, policy=None,
             grad_reduce=grad_reduce, microbatches=microbatches)
 
     return Task("gan", init, make_step)
+
+
+class LMState(NamedTuple):
+    """An LM's train state carried through the engine loop."""
+    params: Any
+    opt_state: Any
+
+
+def lm_task(model, cfg, optimizer, *, policy,
+            microbatches: int = 1) -> Task:
+    """Any ported LM architecture through ``steps.make_train_step`` (clip
+    at 1.0).  The LM loss is deterministic given the batch: the step's
+    generator is unused."""
+    from repro_torch.train import steps as steps_lib
+
+    def init(gen, device):
+        params = model.init(gen, cfg, device)
+        return LMState(params, optimizer.init(params))
+
+    def make_step(grad_reduce=None):
+        if grad_reduce is not None:
+            raise NotImplementedError(
+                "grad_reduce waits for the data-parallel slice (ROADMAP.md, "
+                "Queue 1)")
+        inner = steps_lib.make_train_step(model, cfg, optimizer, policy,
+                                          microbatches=microbatches)
+
+        def step(state, batch, gen):
+            params, opt_state, metrics = inner(state.params, state.opt_state,
+                                               batch)
+            return LMState(params, opt_state), metrics
+
+        return step
+
+    return Task("lm", init, make_step)
 
 
 class Prefetcher:

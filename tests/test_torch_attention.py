@@ -211,7 +211,8 @@ def test_plain_chunk_live_rows_match_dot_attention():
 
 def test_attend_routes_serving_calls():
     """A single query without q_offset is decode; with q_offset it is the
-    chunk; without kv_len (training) the port raises."""
+    chunk; without kv_len (training) it is the causal flash attention of
+    the reference's Pallas route."""
     q, k, v = (torch.from_numpy(a) for a in _decode_case(6, 2, 64, 4, 2, 16))
     kvl = torch.tensor([30, 64], dtype=torch.int32)
     out = tattn.attend(q, k, v, kv_len=kvl)
@@ -224,8 +225,11 @@ def test_attend_routes_serving_calls():
                         causal=False, kv_len=jnp.asarray(kvl.numpy()),
                         use_pallas=True)
     np.testing.assert_allclose(out.numpy(), np.asarray(jout), atol=F32_TOL)
-    with pytest.raises(NotImplementedError):
-        tattn.attend(q, k, v)
+    out_t = tattn.attend(q, k, v)
+    jout_t = jattn.attend(*(jnp.asarray(t.numpy()) for t in (q, k, v)),
+                          use_pallas=True)
+    np.testing.assert_allclose(out_t.numpy(), np.asarray(jout_t),
+                               atol=F32_TOL)
 
 
 def test_wrappers_check_their_inputs():

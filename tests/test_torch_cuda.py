@@ -4,7 +4,10 @@ cropping pads, Ci=1, Co=1), their launch counters and input checks, the
 ops' gradients, the engine and a training step on the card; the serving
 attention kernels (split-KV decode, chunked prefill) over ragged GQA /
 MQA / MHA shapes, windows and inactive rows, and the LM and its engine on
-the card against the CPU.  Every test
+the card against the CPU; the training attention kernels (forward, dq,
+dk/dv) over S = 1, odd S, D 16-128, G 1-6, windows and rows that see no
+key, bit-for-bit repeats and input checks, and a reduced LM training
+step on the card against the CPU.  Every test
 needs a card and skips elsewhere; this file imports no JAX, so on the
 machine with the card it runs without the JAX package:
 
@@ -15,7 +18,9 @@ TF32 is off for every comparison.  Tolerances: the forward kernel f32
 (1e-2 / 2e-3); the dw kernel 1e-4 of the largest |dw| in every dtype
 (both sides sum the same rounded inputs in f32, in another order); the
 attention kernels f32 1e-5, bf16 1e-2 absolute and relative (one bf16
-rounding of the same f32 result); the LM's logits 1e-4 of the largest.
+rounding of the same f32 result); the training attention kernels 1e-5
+(f32) and 1e-2 (bf16) of the larger of each output's largest magnitude
+and 1; the LM's logits 1e-4 of the largest.
 """
 import numpy as np
 import pytest
@@ -293,6 +298,12 @@ def test_engine_fit_on_card_resumes_bit_for_bit(cuda):
 
 
 ATTN_TOL = {torch.float32: (1e-5, 0.0), torch.bfloat16: (1e-2, 1e-2)}
+# training attention kernels vs plain, of the larger of each output's
+# largest magnitude and 1 (the scale of the N(0, 1) inputs: a gradient that
+# cancels to 0 in exact arithmetic, as dq does at S = 1, holds only a
+# rounding residue): f32 sums in another order; bf16 one rounding of the
+# same f32 result
+TOL_TRAIN = {torch.float32: 1e-5, torch.bfloat16: 1e-2}
 DECODE_GEOMS = [
     # B, T, H, KH, D, kv_lens, window
     (8, 1024, 12, 2, 128, (1, 64, 65, 500, 1023, 1024, 0, 7), 0),  # qwen2
@@ -446,3 +457,137 @@ def test_lm_engine_on_card_chunked_matches_sequential(cuda):
         assert tdecode.LAUNCHES - d0 == \
             cfg.n_layers * eng.stats["decode_steps"]
     assert out["chunked"] == out["sequential"]
+
+
+TRAIN_GEOMS = [
+    # B, S, T, H, KH, D, causal, window
+    (8, 256, 256, 12, 2, 128, True, 0),                            # qwen2
+    (2, 1, 1, 6, 1, 64, True, 0),                                  # S = 1
+    (2, 77, 77, 6, 1, 64, True, 0),                                # MQA, odd
+    (2, 100, 100, 4, 4, 128, True, 0),                             # G = 1
+    (1, 130, 130, 12, 2, 64, True, 33),                            # window
+    (2, 70, 45, 8, 2, 32, False, 0),                               # T != S
+    (1, 40, 10, 2, 1, 16, True, 4),                                # no key
+]
+
+
+def _train_inputs(cuda, B, S, T, H, KH, D, dtype, seed=2):
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    return [torch.randn(s, generator=g, device=cuda).to(dtype)
+            for s in ((B, S, H, D), (B, T, KH, D), (B, T, KH, D),
+                      (B, S, H, D))]
+
+
+def _rel_close(got, want, tol):
+    err = float((got.float() - want.float()).abs().max())
+    assert err <= tol * max(float(want.float().abs().max()), 1.0), err
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,S,T,H,KH,D,causal,window", TRAIN_GEOMS)
+def test_flash_train_kernels_match_plain(cuda, B, S, T, H, KH, D, causal,
+                                         window, dtype):
+    """Forward (O, lse), dq and dk/dv kernels against their plain versions
+    on the card (TOL_TRAIN; lse elementwise 1e-5), one launch each, and a
+    second run of each bit for bit."""
+    q, k, v, do = _train_inputs(cuda, B, S, T, H, KH, D, dtype)
+    kw = dict(causal=causal, window=window)
+    n0 = (tchunk.FWD_LAUNCHES, tchunk.DQ_LAUNCHES, tchunk.DKV_LAUNCHES)
+    o, lse = tchunk.flash_attention_fwd(q, k, v, return_lse=True, **kw)
+    delta = attn_ref.attention_delta(o, do)
+    dq = tchunk.flash_bwd_dq(q, k, v, do, lse, delta, **kw)
+    dk, dv = tchunk.flash_bwd_dkv(q, k, v, do, lse, delta, **kw)
+    torch.cuda.synchronize()
+    assert (tchunk.FWD_LAUNCHES, tchunk.DQ_LAUNCHES,
+            tchunk.DKV_LAUNCHES) == tuple(n + 1 for n in n0)
+    po, plse = attn_ref.flash_fwd_ref(q, k, v, **kw)
+    pdq = attn_ref.flash_bwd_dq_ref(q, k, v, do, lse, delta, **kw)
+    pdk, pdv = attn_ref.flash_bwd_dkv_ref(q, k, v, do, lse, delta, **kw)
+    tol = TOL_TRAIN[dtype]
+    for got, want in ((o, po), (dq, pdq), (dk, pdk), (dv, pdv)):
+        assert got.shape == want.shape and got.dtype == dtype
+        _rel_close(got, want, tol)
+    assert bool(((lse - plse).abs() <= 1e-5 + 1e-5 * plse.abs()).all())
+    empty = ~attn_ref.train_mask(S, T, causal, window, cuda).any(dim=1)
+    assert bool((o[:, empty] == 0).all()) and bool((dq[:, empty] == 0).all())
+    o2, lse2 = tchunk.flash_attention_fwd(q, k, v, return_lse=True, **kw)
+    dq2 = tchunk.flash_bwd_dq(q, k, v, do, lse, delta, **kw)
+    dk2, dv2 = tchunk.flash_bwd_dkv(q, k, v, do, lse, delta, **kw)
+    for a, b in ((o, o2), (lse, lse2), (dq, dq2), (dk, dk2), (dv, dv2)):
+        assert torch.equal(a, b)
+
+
+def test_flash_train_kernels_reject_what_they_do_not_take(cuda):
+    q, k, v, do = _train_inputs(cuda, 1, 8, 8, 4, 2, 16, torch.float32)
+    lse = torch.zeros((1, 8, 4), device=cuda)
+    n0 = (tchunk.FWD_LAUNCHES, tchunk.DQ_LAUNCHES, tchunk.DKV_LAUNCHES)
+    with pytest.raises(TypeError):
+        tchunk.flash_attention_fwd(q.half(), k.half(), v.half())
+    with pytest.raises(ValueError, match="D in"):
+        z = torch.zeros((1, 4, 2, 80), device=cuda)
+        tchunk.flash_attention_fwd(z, z[:, :, :1], z[:, :, :1])
+    with pytest.raises(ValueError, match="H / KH"):
+        z = torch.zeros((1, 4, 65, 16), device=cuda)
+        tchunk.flash_attention_fwd(z, z[:, :, :1], z[:, :, :1])
+    with pytest.raises(ValueError, match="lse"):
+        tchunk.flash_bwd_dq(q, k, v, do, lse.bfloat16(), lse)
+    with pytest.raises(ValueError, match="delta"):
+        tchunk.flash_bwd_dkv(q, k, v, do, lse, lse.cpu())
+    assert (tchunk.FWD_LAUNCHES, tchunk.DQ_LAUNCHES,
+            tchunk.DKV_LAUNCHES) == n0
+
+
+def test_lm_train_step_on_card_matches_cpu_and_counts_launches(cuda):
+    """One f32 AdamW step of the reduced qwen2-1.5b (remat on) on the card
+    (kernels) against the CPU (plain versions) from the same parameters
+    and tokens: loss and grad norm within 1e-5 relative, each AdamW
+    moment leaf within 1e-4 of its largest, each update element (new
+    param minus param) within 1e-3 of its leaf's largest, one f32 spacing
+    at the param, and what the two sides' gradients a, b make of it
+    through Adam's first step -lr * g / (|g| + eps): at most
+    lr * eps |a - b| / (d + eps)^2, d the distance from 0 to [a, b],
+    which rounding decides where |g| is near eps; 2L forward (remat) and L
+    of each backward kernel launches; a second step from the same state
+    bit for bit."""
+    from repro_torch.models import api
+    from repro_torch.train import steps as steps_lib
+    cfg = lm_base.reduced_config("qwen2-1.5b")
+    params = tlm.init(torch.Generator().manual_seed(0), cfg, "cpu")
+    tokens = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab, (2, 64)).astype(np.int32))
+    lr, eps = 1e-3, 1e-8
+    opt = opt_lib.adamw(opt_lib.warmup_cosine(lr, 1, 4), eps=eps)
+    step = steps_lib.make_train_step(api.get_model(cfg), cfg, opt,
+                                     precision.get_policy("f32"))
+    out = {}
+    for dev in ("cpu", "cuda"):
+        p = precision.tree_map(lambda t: t.to(dev), params)
+        n0 = (tchunk.FWD_LAUNCHES, tchunk.DQ_LAUNCHES, tchunk.DKV_LAUNCHES)
+        out[dev] = step(p, opt.init(p), {"tokens": tokens.to(dev)})
+        if dev == "cuda":
+            torch.cuda.synchronize()
+            L = cfg.n_layers
+            assert (tchunk.FWD_LAUNCHES - n0[0], tchunk.DQ_LAUNCHES - n0[1],
+                    tchunk.DKV_LAUNCHES - n0[2]) == (2 * L, L, L)
+            again = step(p, opt.init(p), {"tokens": tokens.to(dev)})
+    (cp, cs, cm), (gp, gs, gm) = out["cpu"], out["cuda"]
+    for k in ("loss", "grad_norm"):
+        assert abs(float(gm[k]) - float(cm[k])) <= 1e-5 * abs(float(cm[k]))
+    for a, b in zip(precision.tree_leaves([gs["m"], gs["v"]]),
+                    precision.tree_leaves([cs["m"], cs["v"]])):
+        assert float((a.cpu() - b).abs().max()) <= 1e-4 * float(
+            b.abs().max())
+    for new_g, new_c, p0, mg, mc in zip(*(precision.tree_leaves(t) for t in
+                                          (gp, cp, params, gs["m"],
+                                           cs["m"]))):
+        a, b = mg.cpu() / 0.1, mc / 0.1   # each side's gradient (b1 = 0.9)
+        d = torch.where(a * b > 0, torch.minimum(a.abs(), b.abs()),
+                        torch.zeros_like(a))
+        allow = (lr * eps * (a - b).abs() / (d + eps) ** 2
+                 + 2.0 ** -23 * p0.abs())
+        upd_g, upd_c = new_g.cpu() - p0, new_c - p0
+        assert bool(((upd_g - upd_c).abs() <= 1e-3 * upd_c.abs().max()
+                     + allow).all())
+    for a, b in zip(precision.tree_leaves([gp, gs]),
+                    precision.tree_leaves([again[0], again[1]])):
+        assert torch.equal(a, b)

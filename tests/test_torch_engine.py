@@ -272,8 +272,9 @@ def test_fit_logs_windows_and_stops_with_the_stream():
 
 
 def test_launcher_defaults_and_refusals():
-    with pytest.raises(NotImplementedError, match="Queue 4"):
-        ttrain.main(["--arch", "qwen2-1.5b", "--device", "cpu"])
+    for arch in ("zamba2-1.2b", "phi4-mini-3.8b"):
+        with pytest.raises(NotImplementedError, match="ROADMAP.md, Queue 1"):
+            ttrain.main(["--arch", arch, "--device", "cpu"])
     for loop in ("custom", "naive"):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             ttrain.main(["--loop", loop, "--device", "cpu"])

@@ -242,6 +242,8 @@ print(json.dumps({"modules": names, "bad": bad}))
                 "configs.base", "configs.qwen2_1_5b", "substrate.attention",
                 "kernels.flash_attention.ref", "kernels.flash_attention.decode",
                 "kernels.flash_attention.flash_attention", "models.lm",
-                "models.api", "train.steps", "serve.engine"):
+                "models.api", "train.steps", "serve.engine",
+                "kernels.flash_attention.ops", "data.tokens",
+                "train.checkpoint", "convert"):
         assert f"repro_torch.{mod}" in res["modules"]
     assert res["bad"] == []
