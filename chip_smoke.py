@@ -4,7 +4,8 @@ Run from the root of a checkout:  python3 chip_smoke.py
 
 1. prints the card's name and power limit (nvidia-smi);
 2. builds the port's CUDA kernels (``conv3d_fwd``, ``conv3d_dw``,
-   ``flash_chunk``, ``flash_decode``, ``flash_fwd``, ``flash_bwd``) from
+   ``flash_chunk``, ``flash_decode``, ``flash_fwd``, ``flash_bwd``,
+   ``ssd_fwd``, ``ssd_bwd``) from
    ``src/repro_torch/kernels/*/csrc`` into ``build/kernels/``, one nvcc
    per source, all at once, and prints the build time;
 3. forward: holds the conv3d kernel, through the public entry points
@@ -59,7 +60,21 @@ Run from the root of a checkout:  python3 chip_smoke.py
    just after: exactly 56 ``flash_fwd``, 28 ``flash_bwd_dq`` and 28
    ``flash_bwd_dkv`` launches per step), its step time, tokens/s and peak
    memory, the same step twice bit for bit, and one profiled step;
-9. writes every number to ``results/chip_smoke.json``, prints the
+9. Zamba2 training: the SSD scan's forward and backward kernels against
+   their plain versions at the zamba2-1.2b training shapes (batch 8, 64
+   heads of P = N = 64, chunks of 128) at S = 256, a ragged 200 and 1024
+   (eight chunks) on N(0, 1) inputs (y, final and entry states, dx, dB,
+   dC, ddt, dA; a second run of each bit for bit), timed beside their
+   bounds; one training step card vs CPU at full width with the depth
+   cut to 2 layers; then the Zamba2 training main path: full-width
+   zamba2-1.2b from seed 0 through ``Engine.fit`` on ``lm_task`` with
+   the same settings (counts reset just before, read just after: exactly
+   76 ``ssd_fwd``, 38 ``ssd_bwd``, 14 ``flash_fwd``, 7 ``flash_bwd_dq``
+   and 7 ``flash_bwd_dkv`` launches per step), its step time, tokens/s
+   and peak memory, the same step twice bit for bit, and one profiled
+   step with its device time split among GEMMs, SSD kernels, attention
+   kernels and elementwise work;
+10. writes every number to ``results/chip_smoke.json``, prints the
    kernels' JSON line, the card line again, and as its last line
    ``{"ok": true, "device": {...}}``.
 
@@ -141,6 +156,17 @@ TOL_TRAIN_ATTN = {"float32": 1e-5, "bfloat16": 1e-2}
 LMT_CHECK_LAYERS, LMT_CHECK_BATCH, LMT_CHECK_SEQ = 2, 2, 128
 LMT_LOSS_TOL, LMT_GRAD_TOL, LMT_UPD_TOL, ADAM_EPS = 1e-5, 1e-4, 1e-3, 1e-8
 F32_SPACING = 2.0 ** -23          # f32 spacing at x is at most this * |x|
+# the SSD scan kernels vs plain at the zamba2-1.2b training shapes (batch
+# LMT_BATCH, 64 heads of P = N = 64, chunks of ops.CHUNK = 128) at three
+# sequence lengths: the path's, a ragged one and many chunks.  Each output
+# to TOL_SSD of the larger of its largest magnitude and 1 (f32 sums in
+# another order; the backward's dla is a reverse cumsum of terms that
+# cancel, and dA sums dt * dla over every position)
+SSD_SEQS = (LMT_SEQ, 200, 1024)
+TOL_SSD = {"ssd_fwd": 1e-5, "ssd_bwd": 1e-4}
+# the training kernels whose launches the LM training paths count
+TRAIN_KERNELS = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv", "ssd_fwd",
+                 "ssd_bwd")
 
 
 def check(cond, msg):
@@ -1793,42 +1819,223 @@ def train_attention_phase(cfg):
     return rows
 
 
-def lm_train_check_phase(cfg):
-    """One LM training step, card (kernels) vs CPU (plain versions), from
-    the same parameters (seed 0) and tokens (numpy): full width, depth cut
-    to LMT_CHECK_LAYERS (the CPU side sets the cut), batch LMT_CHECK_BATCH
-    x seq LMT_CHECK_SEQ; AdamW on warmup_cosine(LMT_LR, 20, LMT_STEPS),
-    clip 1.0.  Loss, grad norm, each gradient leaf (the step's own clipped
-    gradient, read back from AdamW's first moment m = (1 - b1) g) and each
-    AdamW update leaf, leaf by leaf."""
+def ssd_work(Bt, S, H, P, N, L):
+    """{kernel: (bound ms, "bytes" | "operations", bytes, flops)} of the two
+    SSD scan wrappers on these f32 shapes: the multiply-adds the function
+    needs, not those the kernels spend.  Per chunk of l steps up to S (a
+    ragged last chunk counts only its own), over its l (l + 1) / 2 pairs s
+    <= t: C B^T once per batch row (B and C are shared by all heads), and
+    per head -- forward: M x (P each); C state (l P N) where the entry
+    state is not the zero one (every chunk but the first) and the state
+    update (l P N).  Backward: dy x^T and M^T dy (P each), T1^T C and
+    (T1 dt) B (N each); dy s0 and dy^T C (the chunk before's G) in every
+    chunk but the first; B G^T, x G and the state update for <G, s1> in
+    every chunk but the last, where G is zero.  The kernels compute every
+    (L, L) product whole, per head and over a ragged chunk's pad, as the
+    TPU kernels do: that is their design, not the function's work.
+    Bytes: each input read once, each output of the wrapper written once
+    (the backward's dB and dC summed over heads, and dA).  L is clamped to
+    S, as the wrappers clamp it."""
+    L = min(L, S)
+    nC = -(-S // L)
+    fwd = bwd = 0
+    for c in range(nC):
+        l = min(L, S - c * L)
+        pairs, lpn = l * (l + 1) // 2, l * P * N
+        first, last = c == 0, c == nC - 1
+        fwd += Bt * pairs * N + Bt * H * (pairs * P + lpn * (2 - first))
+        bwd += Bt * pairs * N + Bt * H * (
+            pairs * 2 * (P + N) + lpn * (2 * (not first) + 3 * (not last)))
+    seq, state, rows = Bt * S * H * P, Bt * H * P * N, Bt * S * H
+    bc = 2 * Bt * S * N
+    fwd_in = seq + bc + rows + H
+    work = {
+        "ssd_fwd": (fwd, 4 * (fwd_in + seq + state + nC * state)),
+        "ssd_bwd": (bwd, 4 * (fwd_in + nC * state + seq        # + s0, dy
+                              + seq + bc + rows + H)),
+    }
+    return {name: (*layer_bound(macs, nbytes, "float32"), nbytes, 2 * macs)
+            for name, (macs, nbytes) in work.items()}
+
+
+def ssd_inputs(Bt, S, H, P, N, seed):
+    """N(0, 1) x, B, C and dy on the card; dt = softplus(N(-2, 1)) and A
+    from -1 to -16 (the model's A_log init): the log-decay falls by
+    hundreds within a chunk, so exp(F_t - F_s) above the diagonal would
+    overflow."""
     import torch
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    x, dy = (torch.randn((Bt, S, H, P), generator=g, device="cuda")
+             for _ in range(2))
+    B, C = (torch.randn((Bt, S, N), generator=g, device="cuda")
+            for _ in range(2))
+    dt = torch.nn.functional.softplus(
+        torch.randn((Bt, S, H), generator=g, device="cuda") - 2.0)
+    A = -torch.linspace(1.0, 16.0, H, device="cuda")
+    return x, B, C, dt, A, dy
+
+
+def ssd_phase(cfg):
+    """The SSD scan's forward and backward kernels against their plain
+    versions at the zamba2-1.2b training shapes (batch LMT_BATCH, its heads
+    and state, chunks of ops.CHUNK) for each S in SSD_SEQS: y, the final
+    and entry states, dx, dB, dC, ddt and dA, each to TOL_SSD of the
+    larger of its largest and 1; each kernel a second time on the same
+    inputs, bit for bit; kernel and plain times beside each bound.  No
+    single PyTorch call computes the scan, so there is no library time."""
+    import torch
+    from repro_torch.kernels.ssm_scan import ops, ref
+    from repro_torch.kernels.ssm_scan import ssm_scan as ssd
+    di = cfg.ssm.expand * cfg.d_model
+    H, P, N = di // cfg.ssm.head_dim, cfg.ssm.head_dim, cfg.ssm.state_dim
+    Bt, L = LMT_BATCH, ops.CHUNK
+    rows = []
+    n0 = (ssd.FWD_LAUNCHES, ssd.BWD_LAUNCHES)
+    for S in SSD_SEQS:
+        x, B, C, dt, A, dy = ssd_inputs(Bt, S, H, P, N, seed=29 + S)
+        fwd = ssd.ssm_scan_fwd(x, B, C, dt, A, chunk=L,
+                               return_chunk_states=True)
+        bwd = ssd.ssm_scan_bwd(x, B, C, dt, A, fwd[2], dy, chunk=L)
+        pf = ref.ssd_fwd_ref(x, B, C, dt, A, chunk=L)
+        pb = ref.ssd_bwd_ref(x, B, C, dt, A, pf[2], dy, chunk=L)
+        again = (ssd.ssm_scan_fwd(x, B, C, dt, A, chunk=L,
+                                  return_chunk_states=True)
+                 + ssd.ssm_scan_bwd(x, B, C, dt, A, fwd[2], dy, chunk=L))
+        torch.cuda.synchronize()
+        same = all(torch.equal(a, b) for a, b in zip(fwd + bwd, again))
+        finite = all(bool(torch.isfinite(t).all()) for t in fwd + bwd)
+        bounds = ssd_work(Bt, S, H, P, N, L)
+        outs = {"ssd_fwd": (("y", "final_state", "chunk_states"), fwd, pf),
+                "ssd_bwd": (("dx", "dB", "dC", "ddt", "dA"), bwd, pb)}
+        times = {
+            "ssd_fwd": (lambda: ssd.ssm_scan_fwd(
+                x, B, C, dt, A, chunk=L, return_chunk_states=True),
+                lambda: ref.ssd_fwd_ref(x, B, C, dt, A, chunk=L)),
+            "ssd_bwd": (lambda: ssd.ssm_scan_bwd(x, B, C, dt, A, fwd[2], dy,
+                                                 chunk=L),
+                        lambda: ref.ssd_bwd_ref(x, B, C, dt, A, pf[2], dy,
+                                                chunk=L)),
+        }
+        for name, (names, got, want) in outs.items():
+            errs, abs_err = {}, 0.0
+            for n, a, b in zip(names, got, want):
+                e = float((a - b).abs().max())
+                abs_err = max(abs_err, e)
+                errs[n] = e / max(float(b.abs().max()), 1.0)
+            ms_k, ms_p = (cuda_ms(f) for f in times[name])
+            bound, by, nbytes, flops = bounds[name]
+            rows.append({"kernel": name, "seq": S,
+                         "shape": [Bt, S, H, P, N], "chunk": L,
+                         "max_abs_err": abs_err, "errors": errs,
+                         "max_err_of_largest": max(errs.values()),
+                         "ms": ms_k, "plain_ms": ms_p, "library_ms": None,
+                         "bound_ms": bound, "bound_by": by,
+                         "mbytes": nbytes / 1e6, "gflop": flops / 1e9,
+                         "repeat_identical": same})
+            worst = max(errs, key=errs.get)
+            print(f"  {name} S={S:<5d} worst {worst} {errs[worst]:.2e} of "
+                  f"its largest (tolerance {TOL_SSD[name]}); kernel_ms="
+                  f"{ms_k:.4f} plain_ms={ms_p:.4f} bound_ms={bound:.4f} "
+                  f"({by}, {flops / 1e9:.2f} GFLOP, {nbytes / 1e6:.1f} MB); "
+                  f"repeat bit-identical: {same}", flush=True)
+            check(errs[worst] <= TOL_SSD[name],
+                  f"{name} S={S}: kernel disagrees with plain ({errs})")
+        check(same, f"SSD kernels S={S}: a second run differs")
+        check(finite, f"SSD kernels S={S}: non-finite output")
+        del x, B, C, dt, A, dy, fwd, bwd, pf, pb, again
+    # launches made to compare and time are not main-path launches
+    ssd.FWD_LAUNCHES, ssd.BWD_LAUNCHES = n0
+    return rows
+
+
+def train_launches(cfg, steps=1):
+    """{kernel: launches} that ``steps`` training steps of ``cfg`` make with
+    remat: per attention layer 2 ``flash_fwd`` (forward and recompute) and
+    one of each backward kernel; per Mamba2 layer 2 ``ssd_fwd`` and one
+    ``ssd_bwd``.  The dense family's attention layers are its n_layers;
+    Zamba2's are its shared block's applications (after layers 0, k,
+    2k, ... for k = shared_attn_every)."""
+    if cfg.ssm is not None:
+        attn = len(range(0, cfg.n_layers, max(cfg.shared_attn_every, 1)))
+        mamba = cfg.n_layers
+    else:
+        attn, mamba = cfg.n_layers, 0
+    per = {"flash_fwd": 2 * attn, "flash_bwd_dq": attn, "flash_bwd_dkv": attn,
+           "ssd_fwd": 2 * mamba, "ssd_bwd": mamba}
+    return {k: v * steps for k, v in per.items()}
+
+
+def train_counts(reset=False):
+    """{kernel: launches so far} of the five training kernels, each set to
+    0 first when ``reset``."""
     from repro_torch.kernels.flash_attention import flash_attention as fa
-    from repro_torch.models import api, lm
+    from repro_torch.kernels.ssm_scan import ssm_scan as ssd
+    if reset:
+        fa.FWD_LAUNCHES = fa.DQ_LAUNCHES = fa.DKV_LAUNCHES = 0
+        ssd.FWD_LAUNCHES = ssd.BWD_LAUNCHES = 0
+    return {"flash_fwd": fa.FWD_LAUNCHES, "flash_bwd_dq": fa.DQ_LAUNCHES,
+            "flash_bwd_dkv": fa.DKV_LAUNCHES, "ssd_fwd": ssd.FWD_LAUNCHES,
+            "ssd_bwd": ssd.BWD_LAUNCHES}
+
+
+def device_split(kernels):
+    """Device ms of a profiled step by kind, from ``device_kernels``: the
+    GEMMs (cuBLAS / CUTLASS names: gemm, gemv, split-K), the SSD kernels,
+    the attention kernels, PyTorch's elementwise kernels and the rest."""
+    out = {"gemm": 0.0, "ssd": 0.0, "attention": 0.0, "elementwise": 0.0,
+           "other": 0.0}
+    for k in kernels:
+        name = k["kernel"].lower()
+        if "ssd_fwd" in name or "ssd_bwd" in name:
+            kind = "ssd"
+        elif "flash_" in name:
+            kind = "attention"
+        elif any(w in name for w in ("gemm", "gemv", "splitk")):
+            kind = "gemm"
+        elif "elementwise" in name:
+            kind = "elementwise"
+        else:
+            kind = "other"
+        out[kind] += k["ms"]
+    return out
+
+
+def lm_train_check_phase(cfg):
+    """One LM training step (qwen2-1.5b or zamba2-1.2b), card (kernels) vs
+    CPU (plain versions), from the same parameters (seed 0) and tokens
+    (numpy): full width, depth cut to LMT_CHECK_LAYERS (the CPU side sets
+    the cut), batch LMT_CHECK_BATCH x seq LMT_CHECK_SEQ; AdamW on
+    warmup_cosine(LMT_LR, 20, LMT_STEPS), clip 1.0.  Loss, grad norm, each
+    gradient leaf (the step's own clipped gradient, read back from AdamW's
+    first moment m = (1 - b1) g; a leaf the loss never reads, Zamba2's
+    shared attn/wo, must be exactly 0 on both sides) and each AdamW update
+    leaf, leaf by leaf."""
+    import torch
+    from repro_torch.models import api
     from repro_torch.optim import optimizers as opt_lib
     from repro_torch.substrate.precision import get_policy, tree_map
     from repro_torch.train import steps as steps_lib
     cut = dataclasses.replace(cfg, n_layers=LMT_CHECK_LAYERS)
-    params = lm.init(torch.Generator().manual_seed(0), cut, "cpu")
+    model = api.get_model(cut)
+    params = model.init(torch.Generator().manual_seed(0), cut, "cpu")
     tokens = np.random.default_rng(8).integers(
         0, cfg.vocab, (LMT_CHECK_BATCH, LMT_CHECK_SEQ)).astype(np.int32)
     schedule = opt_lib.warmup_cosine(LMT_LR, 20, LMT_STEPS)
     lr1 = float(schedule(torch.ones((), dtype=torch.int32)))
     b1 = 0.9
     opt = opt_lib.adamw(schedule, b1=b1, eps=ADAM_EPS)
-    step = steps_lib.make_train_step(api.get_model(cut), cut, opt,
-                                     get_policy("f32"))
+    step = steps_lib.make_train_step(model, cut, opt, get_policy("f32"))
     out = {}
     for dev in ("cpu", "cuda"):
         p = tree_map(lambda t: t.to(dev), params)
-        n0 = (fa.FWD_LAUNCHES, fa.DQ_LAUNCHES, fa.DKV_LAUNCHES)
+        n0 = train_counts()
         t0 = time.perf_counter()
         new_p, new_s, metrics = step(p, opt.init(p),
                                      {"tokens": torch.from_numpy(tokens).to(dev)})
         if dev == "cuda":
             torch.cuda.synchronize()
         secs = time.perf_counter() - t0
-        n = (fa.FWD_LAUNCHES - n0[0], fa.DQ_LAUNCHES - n0[1],
-             fa.DKV_LAUNCHES - n0[2])
+        n = {k: v - n0[k] for k, v in train_counts().items()}
         upd = tree_map(lambda a, b: (a - b).cpu(), new_p, p)
         grads = tree_map(lambda m: m.cpu() / (1 - b1), new_s["m"])
         out[dev] = (grads, upd, {k: float(v) for k, v in metrics.items()}, n,
@@ -1837,12 +2044,15 @@ def lm_train_check_phase(cfg):
         out["cpu"], out["cuda"]
     loss_err = abs(m_g["loss"] - m_c["loss"]) / abs(m_c["loss"])
     norm_err = abs(m_g["grad_norm"] - m_c["grad_norm"]) / m_c["grad_norm"]
-    p_of = dict(leaf_items(lm_block_tree(params)))
+    p_of = dict(leaf_items(layer_tree(params)))
     grad_err, upd_err, upd_raw, decided = {}, {}, {}, {}
     for (path, gc), (_, gg), (_, uc), (_, ug) in zip(
-            leaf_items(lm_block_tree(g_c)), leaf_items(lm_block_tree(g_g)),
-            leaf_items(lm_block_tree(u_c)), leaf_items(lm_block_tree(u_g))):
-        grad_err[path] = float((gg - gc).abs().max()) / float(gc.abs().max())
+            leaf_items(layer_tree(g_c)), leaf_items(layer_tree(g_g)),
+            leaf_items(layer_tree(u_c)), leaf_items(layer_tree(u_g))):
+        g_top, g_diff = float(gc.abs().max()), float((gg - gc).abs().max())
+        # a leaf with no gradient on the CPU must have none on the card
+        grad_err[path] = (g_diff / g_top if g_top > 0
+                          else 0.0 if g_diff == 0 else float("inf"))
         diff, top = (ug - uc).abs(), float(uc.abs().max())
         adam = adam_allowance(gg, gc, lr1)
         allow = adam + F32_SPACING * p_of[path].abs()
@@ -1867,20 +2077,20 @@ def lm_train_check_phase(cfg):
           f"passes {LMT_UPD_TOL} of the largest: at most "
           f"{100 * max(decided.values()):.3f}% of a leaf; "
           f"launches on the card: {n_g}", flush=True)
-    want_n = (2 * LMT_CHECK_LAYERS, LMT_CHECK_LAYERS, LMT_CHECK_LAYERS)
+    want_n = train_launches(cut)
     check(loss_err <= LMT_LOSS_TOL and norm_err <= LMT_LOSS_TOL,
           f"LM step card vs CPU: loss {loss_err}, grad norm {norm_err}")
     check(grad_err[worst_g] <= LMT_GRAD_TOL,
           f"LM step card vs CPU: gradient {worst_g} {grad_err[worst_g]}")
     check(upd_err[worst_u] <= LMT_UPD_TOL,
           f"LM step card vs CPU: update {worst_u} {upd_err[worst_u]}")
-    check(n_g == want_n and n_c == (0, 0, 0),
+    check(n_g == want_n and not any(n_c.values()),
           f"LM check launches {n_g} (want {want_n}), CPU {n_c}")
     return {"loss": [m_g["loss"], m_c["loss"]], "loss_err": loss_err,
             "grad_norm_err": norm_err, "grad_err": grad_err,
             "update_err": upd_err, "update_err_raw": upd_raw,
             "update_rounding_share": decided, "card_s": s_g, "cpu_s": s_c,
-            "launches": list(n_g)}
+            "launches": n_g}
 
 
 def adam_allowance(a, b, lr):
@@ -1893,23 +2103,24 @@ def adam_allowance(a, b, lr):
     return lr * ADAM_EPS * (a - b).abs() / (d + ADAM_EPS) ** 2
 
 
-def lm_block_tree(params):
-    """The LM tree with its list of per-layer dicts keyed ``blocks/<i>``."""
-    return dict(params, blocks={str(i): b for i, b in
-                                enumerate(params["blocks"])})
+def layer_tree(params):
+    """The LM tree with its list of per-layer dicts (``blocks`` or
+    ``mamba``) keyed ``<key>/<i>``."""
+    return {k: ({str(i): b for i, b in enumerate(v)} if isinstance(v, list)
+                else v) for k, v in params.items()}
 
 
 def lm_train_phase(cfg, card):
-    """The LM training main path: full-width qwen2-1.5b from seed 0 through
-    ``Engine.fit`` on ``lm_task`` (f32, AdamW on warmup_cosine(LMT_LR, 20,
-    steps), clip 1.0, remat), batch LMT_BATCH x seq LMT_SEQ of
-    ``MarkovTokens`` made before the timed window; counts reset just
-    before and read just after; then the same step twice from one state,
-    bit for bit, and one profiled step."""
+    """An LM training main path: full-width qwen2-1.5b or zamba2-1.2b from
+    seed 0 through ``Engine.fit`` on ``lm_task`` (f32, AdamW on
+    warmup_cosine(LMT_LR, 20, steps), clip 1.0, remat), batch LMT_BATCH x
+    seq LMT_SEQ of ``MarkovTokens`` made before the timed window, LMT_WARMUP
+    + LMT_STEPS steps; counts reset just before and read just after; then
+    the same step twice from one state, bit for bit, and one profiled step
+    with its device time split by kind."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.data.tokens import MarkovTokens
-    from repro_torch.kernels.flash_attention import flash_attention as fa
     from repro_torch.models import api
     from repro_torch.optim import optimizers as opt_lib
     from repro_torch.substrate.precision import get_policy, tree_leaves
@@ -1939,12 +2150,11 @@ def lm_train_phase(cfg, card):
     torch.cuda.reset_peak_memory_stats()
     torch.cuda.synchronize()
     # the main path: counts reset just before, read just after
-    fa.FWD_LAUNCHES = fa.DQ_LAUNCHES = fa.DKV_LAUNCHES = 0
+    train_counts(reset=True)
     t_start = time.perf_counter()
     state, metrics = eng.fit(task, batches, n, seed=0, state=init.pop(),
                              hooks=(hook,))
-    counts = {"flash_fwd": fa.FWD_LAUNCHES, "flash_bwd_dq": fa.DQ_LAUNCHES,
-              "flash_bwd_dkv": fa.DKV_LAUNCHES}
+    counts = train_counts()
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     n_params = sum(t.numel() for t in tree_leaves(state.params))
     step_ms = [1e3 * (b - a) for a, b in zip([t_start] + stamps, stamps)]
@@ -1953,9 +2163,7 @@ def lm_train_phase(cfg, card):
     spread = (max(timed) - min(timed)) / med
     tok_s = LMT_BATCH * LMT_SEQ / med * 1e3
     m = {k: float(v) for k, v in metrics.items()}
-    L = cfg.n_layers
-    want = {"flash_fwd": 2 * L * n, "flash_bwd_dq": L * n,
-            "flash_bwd_dkv": L * n}
+    want = train_launches(cfg, n)
     print(f"  {cfg.arch_id}: {n_params:,} params, init on the card "
           f"{init_s:.1f} s; {n} steps ({LMT_WARMUP} warm-up) of batch "
           f"{LMT_BATCH} x seq {LMT_SEQ}: step wall ms "
@@ -1963,10 +2171,10 @@ def lm_train_phase(cfg, card):
           f"{med:.1f} ms, spread (max-min)/median {100 * spread:.1f}%, "
           f"{tok_s:.0f} tokens/s; peak memory {peak_gb:.2f} GB [{card}]",
           flush=True)
-    print(f"  launches: {counts} over {n} steps (want {want}: 2 x {L} "
-          f"forward, remat included, and {L} of each backward kernel per "
-          f"step); last step loss {m['loss']:.4f}, grad norm "
-          f"{m['grad_norm']:.4f}", flush=True)
+    print(f"  launches: {counts} over {n} steps (want {want}: per step "
+          f"{train_launches(cfg)}, the forward kernels twice with remat); "
+          f"last step loss {m['loss']:.4f}, grad norm {m['grad_norm']:.4f}",
+          flush=True)
     check(counts == want, f"LM training launches {counts} (want {want})")
     check(all(math.isfinite(v) for v in m.values()), f"LM metrics {m}")
 
@@ -1999,12 +2207,15 @@ def lm_train_phase(cfg, card):
     busy = sum(k["ms"] for k in kernels)
     by_name = {name: sum(k["ms"] for k in kernels if name + "_kernel"
                          in k["kernel"])
-               for name in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")}
+               for name in TRAIN_KERNELS if want[name]}
+    split = device_split(kernels)
     print(f"  one f32 step, batch already on the card: wall {wall:.1f} ms",
           flush=True)
     if kernels:
         print(f"  device busy {busy:.1f} ms = {100 * busy / wall:.1f}% of "
-              f"wall; attention kernels {by_name}; by kernel:", flush=True)
+              f"wall; by kind (ms) "
+              f"{ {k: round(v, 2) for k, v in split.items()} }; the path's "
+              f"kernels {by_name}; by kernel:", flush=True)
         for k in kernels[:14]:
             print(f"    {k['ms']:9.3f} ms  x{k['count']:<5d} {k['kernel']}",
                   flush=True)
@@ -2017,7 +2228,8 @@ def lm_train_phase(cfg, card):
             "metrics": m, "repeat_identical": same,
             "profile": {"wall_ms": wall,
                         "device_ms": busy if kernels else None,
-                        "attention_ms": by_name if kernels else None,
+                        "kernel_ms": by_name if kernels else None,
+                        "split_ms": split if kernels else None,
                         "kernels": kernels[:14]}}
 
 
@@ -2039,6 +2251,24 @@ def train_attention_entry(rows, name, source, replaces, launches, steps):
             "bound_by": r["bound_by"], "library_ms": r["library_ms"],
             "library": r["library"],
             "timed": "one f32 call at the LM training path's shapes"}
+
+
+def ssd_entry(rows, name, source, replaces, launches, steps):
+    """The kernels-line entry of one SSD scan kernel: its row at the
+    training path's shapes (S = LMT_SEQ), the worst error over every S it
+    was held at beside it."""
+    r = next(r for r in rows if r["kernel"] == name and r["seq"] == LMT_SEQ)
+    return {"name": name, "route": "cuda", "source": source,
+            "replaces": replaces, "launches": launches,
+            "launches_per_step": launches // steps,
+            "max_abs_err": r["max_abs_err"],
+            "max_err_of_largest": r["max_err_of_largest"],
+            "max_err_of_largest_all_seqs": max(
+                x["max_err_of_largest"] for x in rows if x["kernel"] == name),
+            "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+            "bound_by": r["bound_by"], "library_ms": None,
+            "library": "none: no single PyTorch call computes the SSD scan",
+            "timed": "one f32 call at the zamba2-1.2b training shapes"}
 
 
 def attention_entry(rows, kind, source, replaces, launches):
@@ -2141,6 +2371,19 @@ def main() -> int:
     print(f"LM training main path (full qwen2-1.5b, f32, AdamW, batch "
           f"{LMT_BATCH} x seq {LMT_SEQ}, remat):", flush=True)
     lm_train = timed("lm_train", lm_train_phase, lm_cfg, card)
+    # the qwen2 training state went with its phase: free its cache
+    torch.cuda.empty_cache()
+    z_cfg = lm_base.get_config("zamba2-1.2b")
+    print(f"SSD scan kernels vs plain at the zamba2-1.2b training shapes "
+          f"(batch {LMT_BATCH}, S in {SSD_SEQS}, N(0, 1) inputs):",
+          flush=True)
+    ssd_rows = timed("ssd", ssd_phase, z_cfg)
+    print("Zamba2 training step, card vs CPU (zamba2-1.2b at full width, "
+          "depth cut):", flush=True)
+    z_train_check = timed("zamba_train_check", lm_train_check_phase, z_cfg)
+    print(f"Zamba2 training main path (full zamba2-1.2b, f32, AdamW, batch "
+          f"{LMT_BATCH} x seq {LMT_SEQ}, remat):", flush=True)
+    z_train = timed("zamba_train", lm_train_phase, z_cfg, card)
     print("phase seconds: " + ", ".join(f"{k} {v:.1f}"
                                         for k, v in phases.items()),
           flush=True)
@@ -2191,6 +2434,16 @@ def main() -> int:
         for name, src, line in (("flash_fwd", "flash_fwd.cu", "43"),
                                 ("flash_bwd_dq", "flash_bwd.cu", "338"),
                                 ("flash_bwd_dkv", "flash_bwd.cu", "380"))]
+    for entry in train_kernels:
+        entry["launches_by_path"] = {
+            "qwen2_train": lm_train["counts"][entry["name"]],
+            "zamba2_train": z_train["counts"][entry["name"]]}
+    ssd_kernels = [
+        ssd_entry(ssd_rows, name,
+                  "src/repro_torch/kernels/ssm_scan/csrc/" + name + ".cu",
+                  "src/repro/kernels/ssm_scan/ssm_scan.py:" + line,
+                  z_train["counts"][name], z_train["steps"])
+        for name, line in (("ssd_fwd", "42"), ("ssd_bwd", "160"))]
     os.makedirs(os.path.join(ROOT, "results"), exist_ok=True)
     with open(os.path.join(ROOT, "results", "chip_smoke.json"), "w") as f:
         json.dump({"card": card, "layers": rows + grad_rows, "e2e": e2e,
@@ -2199,10 +2452,11 @@ def main() -> int:
                    "lm_check": lm_check, "lm_serve": lm_serve,
                    "train_attention": train_attn_rows,
                    "lm_train_check": lm_train_check, "lm_train": lm_train,
-                   "phase_s": phases}, f, indent=1)
+                   "ssd": ssd_rows, "zamba_train_check": z_train_check,
+                   "zamba_train": z_train, "phase_s": phases}, f, indent=1)
     print(card, flush=True)
-    print(json.dumps({"kernels": [fwd, dw, chunk, decode, *train_kernels]}),
-          flush=True)
+    print(json.dumps({"kernels": [fwd, dw, chunk, decode, *train_kernels,
+                                  *ssd_kernels]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -1,6 +1,6 @@
 """Architecture configuration of the port's language models: the
 reference's ``configs/base.py`` registry, and its ``ArchConfig`` cut to
-the fields of the dense family.
+the fields of the dense and hybrid (Zamba2) families.
 
 Every architecture is one frozen dataclass, registered by id.  Only the
 ids with a config module in ``repro_torch/configs`` load here; the others
@@ -11,15 +11,25 @@ from __future__ import annotations
 
 import dataclasses
 import importlib
+from typing import Optional
+
+
+@dataclasses.dataclass(frozen=True)
+class SSMConfig:
+    state_dim: int = 64          # N (SSD state size per head)
+    head_dim: int = 64           # P (channels per SSM head)
+    expand: int = 2              # d_inner = expand * d_model
+    conv_width: int = 4          # short causal conv width
 
 
 @dataclasses.dataclass(frozen=True)
 class ArchConfig:
     """Config for one architecture: the reference's fields that the dense
-    serving path reads (``models/lm.check_supported`` names what it runs)."""
+    path (``models/lm.check_supported`` names what it runs) and the hybrid
+    training path (``models/zamba.py``) read."""
 
     arch_id: str
-    family: str                  # only "dense" is ported
+    family: str                  # "dense" and "hybrid" are ported
     n_layers: int
     d_model: int
     n_heads: int
@@ -38,6 +48,12 @@ class ArchConfig:
     ffn_type: str = "swiglu"
     norm_type: str = "rmsnorm"
     tie_embeddings: bool = False
+
+    # family extensions
+    ssm: Optional[SSMConfig] = None
+
+    # hybrid (zamba2): one shared attention block applied every k layers
+    shared_attn_every: int = 0
 
     def __post_init__(self):
         if self.d_head == 0:
@@ -89,13 +105,18 @@ def get_config(arch_id: str):
 
 def reduced_config(arch_id: str):
     """Reduced (smoke-test) variant of the same family: <=2 layers,
-    d_model<=512 (the reference's rule for the dense family, the only one
-    ported)."""
+    d_model<=512 (the reference's rule for the dense family, and its
+    ssm/hybrid additions: state 32, head 32, the shared block every 2
+    layers; its chunk of 64 has no field here, see ``kernels/ssm_scan/ops``)."""
     mod = _module(arch_id)
     if hasattr(mod, "reduced"):
         return mod.reduced()
     c = mod.config()
-    return dataclasses.replace(
-        c, n_layers=2, d_model=256, n_heads=4,
-        n_kv_heads=min(c.n_kv_heads, 4) if c.n_kv_heads > 1 else 1,
-        d_head=64, d_ff=512 if c.d_ff else 0, vocab=512)
+    kw = dict(n_layers=2, d_model=256, n_heads=4,
+              n_kv_heads=min(c.n_kv_heads, 4) if c.n_kv_heads > 1 else 1,
+              d_head=64, d_ff=512 if c.d_ff else 0, vocab=512)
+    if c.ssm is not None:
+        kw["ssm"] = dataclasses.replace(c.ssm, state_dim=32, head_dim=32)
+    if c.shared_attn_every:
+        kw["shared_attn_every"] = 2
+    return dataclasses.replace(c, **kw)

@@ -8,7 +8,8 @@ builds the port's ``GANState`` from the reference's fields, and
 :func:`generator_from_numpy` carries a generator over as f32 for serving,
 :func:`lm_from_numpy` a language model's parameters and
 :func:`lm_state_from_numpy` its AdamW train state; :func:`lm_to_numpy`
-goes back, stacking the per-layer ``blocks`` as the reference does.
+goes back, stacking the per-layer ``blocks`` (dense) or ``mamba``
+(Zamba2) as the reference does.
 """
 from __future__ import annotations
 
@@ -68,40 +69,49 @@ def generator_to_numpy(params) -> dict:
     return tree_to_numpy(tree_map(lambda t: t.float(), params))
 
 
+# the key of a language model's tree whose leaves the reference stacks on a
+# leading layer axis: the dense LM's blocks, Zamba2's Mamba2 layers
+STACKED_KEYS = ("blocks", "mamba")
+
+
 def lm_from_numpy(tree, device="cuda") -> dict:
-    """The reference's ``models/lm.init`` tree (as numpy) -> the port's LM
-    parameters on ``device``: the same leaves, dtypes and ``(d_in, d_out)``
-    layouts, with the ``blocks`` leaves (stacked on a leading layer axis)
-    cut into a list of per-layer dicts."""
-    out = {k: tree_from_numpy(v, device) for k, v in tree.items()
-           if k != "blocks"}
-    stacked = tree_from_numpy(tree["blocks"], device)
-    n_layers = len(tree_leaves(stacked)[0])
-    out["blocks"] = [tree_map(lambda t, i=i: t[i].contiguous(), stacked)
-                     for i in range(n_layers)]
+    """The reference's ``init`` tree of a language model (``models/lm``'s or
+    ``models/zamba``'s, as numpy) -> the port's parameters on ``device``:
+    the same leaves, dtypes and ``(d_in, d_out)`` layouts, with the leaves
+    of the stacked key (``blocks`` or ``mamba``, a leading layer axis) cut
+    into a list of per-layer dicts."""
+    out = {}
+    for k, v in tree.items():
+        if k not in STACKED_KEYS:
+            out[k] = tree_from_numpy(v, device)
+            continue
+        stacked = tree_from_numpy(v, device)
+        n_layers = len(tree_leaves(stacked)[0])
+        out[k] = [tree_map(lambda t, i=i: t[i].contiguous(), stacked)
+                  for i in range(n_layers)]
     return out
 
 
 def stack_layers(blocks) -> dict:
     """A list of per-layer dicts -> one dict whose leaves are the layers'
     tensors stacked on a leading layer axis, on the CPU (the reference's
-    ``blocks`` layout)."""
+    ``blocks`` and ``mamba`` layout)."""
     return tree_map(lambda *ts: torch.stack([t.detach().cpu() for t in ts]),
                     blocks[0], *blocks[1:])
 
 
 def lm_to_numpy(params) -> dict:
-    """The port's LM parameters -> the reference's ``models/lm.init`` tree
-    as numpy: ``blocks`` stacked on a leading layer axis (the inverse of
+    """The port's LM parameters -> the reference's ``init`` tree as numpy:
+    the per-layer list stacked on a leading layer axis (the inverse of
     :func:`lm_from_numpy`)."""
-    return {k: tree_to_numpy(stack_layers(v) if k == "blocks" else v)
+    return {k: tree_to_numpy(stack_layers(v) if k in STACKED_KEYS else v)
             for k, v in params.items()}
 
 
 def lm_state_from_numpy(params, opt_state, device="cuda"):
-    """The port's ``LMState`` from the reference's LM params and AdamW state
-    (``{"step", "m", "v"}``, ``m`` and ``v`` shaped like the params) as
-    numpy trees."""
+    """The port's ``LMState`` from the reference's LM (dense or Zamba2)
+    params and AdamW state (``{"step", "m", "v"}``, ``m`` and ``v`` shaped
+    like the params) as numpy trees."""
     from repro_torch.train.engine import LMState
     opt = {"step": torch.tensor(int(np.asarray(opt_state["step"])),
                                 dtype=torch.int32, device=device),

@@ -135,6 +135,8 @@ def serve_lm(args):
     cfg = (config_base.reduced_config(args.arch) if args.reduced
            else config_base.get_config(args.arch))
     model = api.get_model(cfg)
+    # a family the port does not serve yet refuses here, before any weights
+    model.init_cache(cfg, 1, 1, device="cpu")
     gen = torch.Generator(device=args.device).manual_seed(args.seed)
     params = model.init(gen, cfg, args.device)
     eng = ServeEngine(cfg, params, slots=args.slots, max_len=args.max_len,

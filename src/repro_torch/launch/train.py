@@ -1,6 +1,6 @@
 """Training launcher of the port, on one card through the single-device
-engine: the 3DGAN (the paper's workload, Algorithm 1 as a fused step) or
-the dense language model ``qwen2-1.5b``.
+engine: the 3DGAN (the paper's workload, Algorithm 1 as a fused step),
+the dense language model ``qwen2-1.5b`` or the hybrid ``zamba2-1.2b``.
 
 GAN: every conv, forward and both gradients, runs a hand-written CUDA
 kernel on ``--device cuda`` (the default); then the physics validation of
@@ -9,12 +9,15 @@ generator saved in the reference's checkpoint format, which
 ``launch.serve --ckpt`` serves.  LM: AdamW on ``warmup_cosine(lr, 20,
 steps)``, clip 1.0, remat, batches of ``MarkovTokens``; attention runs the
 flash forward kernel (again in each block's recompute) and the dq and
-dk/dv kernels; ``--ckpt`` saves the parameters as the reference does.
-``--device cpu`` runs every kernel's plain version.
+dk/dv kernels, and each Zamba2 Mamba2 layer the SSD scan's forward kernel
+(again in its recompute) and its backward kernel; ``--ckpt`` saves the
+parameters as the reference does.  ``--device cpu`` runs every kernel's
+plain version.
 
 Usage:
   python -m repro_torch.launch.train --arch calo3dgan --steps 3
   python -m repro_torch.launch.train --arch qwen2-1.5b --steps 3
+  python -m repro_torch.launch.train --arch zamba2-1.2b --steps 3
   python -m repro_torch.launch.train --device cpu --reduced --steps 2 \\
       --ckpt ckpts/gan && \\
   python -m repro_torch.launch.serve --device cpu --reduced --ckpt ckpts/gan
@@ -26,10 +29,9 @@ import time
 
 import torch
 
-LM_ARCHS = ("qwen2-1.5b",)
+LM_ARCHS = ("qwen2-1.5b", "zamba2-1.2b")
 # values the reference takes that the port does not yet, and where they wait
 WAITS = {
-    "zamba2-1.2b": "the Zamba2 slice (ROADMAP.md, Queue 1, slice 5)",
     "arch": "the other LM families (ROADMAP.md, Queue 1, item 10)",
     "custom": "the data-parallel slice (ROADMAP.md, Queue 1, item 7: mesh, "
               "collectives, ZeRO-1)",
@@ -99,6 +101,7 @@ def train_lm(args, log):
     from repro_torch.configs import base as config_base
     from repro_torch.data.tokens import MarkovTokens
     from repro_torch.kernels.flash_attention import flash_attention as fa
+    from repro_torch.kernels.ssm_scan import ssm_scan as ssd
     from repro_torch.models import api
     from repro_torch.optim import optimizers as opt_lib
     from repro_torch.substrate.precision import get_policy, tree_leaves
@@ -115,7 +118,8 @@ def train_lm(args, log):
     eng = engine_lib.Engine(args.device)
     B, S = args.batch or 8, args.seq or 256
     data = MarkovTokens(cfg.vocab, seed=args.seed)
-    n0 = (fa.FWD_LAUNCHES, fa.DQ_LAUNCHES, fa.DKV_LAUNCHES)
+    n0 = (fa.FWD_LAUNCHES, fa.DQ_LAUNCHES, fa.DKV_LAUNCHES,
+          ssd.FWD_LAUNCHES, ssd.BWD_LAUNCHES)
     t0 = time.perf_counter()
     state, _ = eng.fit(task, data.batches(B, S), args.steps, seed=args.seed,
                        log=log, log_every=args.log_every,
@@ -124,7 +128,7 @@ def train_lm(args, log):
         torch.cuda.synchronize(eng.device)
     dt = time.perf_counter() - t0
     where = (torch.cuda.get_device_name(eng.device)
-             if eng.device.type == "cuda" else "cpu (plain attention, no "
+             if eng.device.type == "cuda" else "cpu (plain versions, no "
                                                "kernel)")
     n_params = sum(t.numel() for t in tree_leaves(state.params))
     print(f"{args.arch}: {n_params:,} params "
@@ -134,7 +138,9 @@ def train_lm(args, log):
     print(f"{args.steps} steps in {dt:.1f}s ({args.steps * B * S / dt:.0f} "
           f"tok/s, init and data included) on {where}; kernel launches: "
           f"flash_fwd {fa.FWD_LAUNCHES - n0[0]}, flash_bwd_dq "
-          f"{fa.DQ_LAUNCHES - n0[1]}, flash_bwd_dkv {fa.DKV_LAUNCHES - n0[2]}")
+          f"{fa.DQ_LAUNCHES - n0[1]}, flash_bwd_dkv {fa.DKV_LAUNCHES - n0[2]}"
+          + (f", ssd_fwd {ssd.FWD_LAUNCHES - n0[3]}, ssd_bwd "
+             f"{ssd.BWD_LAUNCHES - n0[4]}" if cfg.ssm is not None else ""))
     if args.ckpt:
         ckpt_lib.save(args.ckpt, state.params, step=args.steps,
                       extra={"arch": args.arch})
@@ -147,8 +153,8 @@ def main(argv=None):
 
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="calo3dgan",
-                    help="calo3dgan or qwen2-1.5b (the architectures "
-                         "ported so far)")
+                    help="calo3dgan, qwen2-1.5b or zamba2-1.2b (the "
+                         "architectures ported so far)")
     ap.add_argument("--steps", type=int, default=100)
     ap.add_argument("--batch", type=int, default=0,
                     help="0: the GAN config's batch, or 8 for an LM")

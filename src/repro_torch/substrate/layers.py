@@ -1,5 +1,5 @@
-"""Initializers, norms, dense layers, the SwiGLU FFN and the embedding on
-tensors.
+"""Initializers, norms, dense layers, the FFNs (SwiGLU and gelu) and the
+embedding on tensors.
 
 Parameters are nested dicts of tensors with the reference's leaf names and
 layouts (dense ``w`` is ``(d_in, d_out)``).  The norms default to
@@ -55,16 +55,29 @@ def apply_dense(p, x):
     return y
 
 
-def init_ffn(gen: torch.Generator, d_model, d_ff, device="cuda"):
-    """SwiGLU FFN parameters (the only FFN the port's LM runs)."""
-    return {"w_gate": normal_init(gen, (d_model, d_ff), device=device),
-            "w_in": normal_init(gen, (d_model, d_ff), device=device),
+FFN_TYPES = ("swiglu", "gelu")   # the reference's relu2 waits for its models
+
+
+def init_ffn(gen: torch.Generator, d_model, d_ff, device="cuda",
+             ffn_type: str = "swiglu"):
+    """FFN parameters: SwiGLU's gate, in and out, or gelu's in and out."""
+    if ffn_type not in FFN_TYPES:
+        raise ValueError(f"ffn_type {ffn_type!r} is not ported: {FFN_TYPES}")
+    if ffn_type == "swiglu":
+        return {"w_gate": normal_init(gen, (d_model, d_ff), device=device),
+                "w_in": normal_init(gen, (d_model, d_ff), device=device),
+                "w_out": normal_init(gen, (d_ff, d_model), device=device)}
+    return {"w_in": normal_init(gen, (d_model, d_ff), device=device),
             "w_out": normal_init(gen, (d_ff, d_model), device=device)}
 
 
-def apply_ffn(p, x):
-    """SwiGLU: (silu(x @ w_gate) * (x @ w_in)) @ w_out."""
-    h = F.silu(x @ p["w_gate"].to(x.dtype)) * (x @ p["w_in"].to(x.dtype))
+def apply_ffn(p, x, ffn_type: str = "swiglu"):
+    """SwiGLU: (silu(x @ w_gate) * (x @ w_in)) @ w_out; gelu: gelu(x @
+    w_in) @ w_out, with JAX's default gelu, the tanh approximation."""
+    if ffn_type == "swiglu":
+        h = F.silu(x @ p["w_gate"].to(x.dtype)) * (x @ p["w_in"].to(x.dtype))
+    else:                        # "gelu", the one other type init_ffn makes
+        h = F.gelu(x @ p["w_in"].to(x.dtype), approximate="tanh")
     return h @ p["w_out"].to(x.dtype)
 
 

@@ -3,7 +3,8 @@
 The format is the reference's: arrays in one compressed ``arrays.npz``
 keyed by the flattened path (``fc/w``, ``up0/gn/scale``) and a
 ``manifest.json`` with the step, the sorted keys and a caller's ``extra``
-dict.  A list of per-layer dicts (an LM's ``blocks``) is written as the
+dict.  A list of per-layer dicts (an LM's ``blocks``, Zamba2's ``mamba``) is
+written as the
 reference writes its stacked layers: one array per leaf
 (``blocks/attn/wq/w``) with a leading layer axis, cut back into the list
 on restore.  What the reference's ``launch/train.py --ckpt`` saves loads

@@ -43,7 +43,10 @@ def make_train_step(model, cfg, optimizer, policy, microbatches: int = 1):
         p = tree_map(lambda t: t.detach().requires_grad_(True), params)
         with torch.enable_grad():
             loss, aux = model.loss_fn(p, mb, cfg, policy=policy)
-            flat = torch.autograd.grad(loss, tree_leaves(p))
+            # a leaf the loss never reads gets zeros, as jax.grad gives it
+            # (Zamba2's shared attn/wo: the block projects through "out")
+            flat = torch.autograd.grad(loss, tree_leaves(p), allow_unused=True,
+                                       materialize_grads=True)
         it = iter(flat)
         return (loss.detach(), {k: v.detach() for k, v in aux.items()},
                 tree_map(lambda _: next(it), params))

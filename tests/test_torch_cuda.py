@@ -7,7 +7,10 @@ MQA / MHA shapes, windows and inactive rows, and the LM and its engine on
 the card against the CPU; the training attention kernels (forward, dq,
 dk/dv) over S = 1, odd S, D 16-128, G 1-6, windows and rows that see no
 key, bit-for-bit repeats and input checks, and a reduced LM training
-step on the card against the CPU.  Every test
+step on the card against the CPU; the SSD scan's forward and backward
+kernels over chunk-multiple, ragged, many-chunk and odd shapes, bit for
+bit on a repeat, their input checks, and a reduced Zamba2 training step
+on the card against the CPU.  Every test
 needs a card and skips elsewhere; this file imports no JAX, so on the
 machine with the card it runs without the JAX package:
 
@@ -20,7 +23,9 @@ TF32 is off for every comparison.  Tolerances: the forward kernel f32
 attention kernels f32 1e-5, bf16 1e-2 absolute and relative (one bf16
 rounding of the same f32 result); the training attention kernels 1e-5
 (f32) and 1e-2 (bf16) of the larger of each output's largest magnitude
-and 1; the LM's logits 1e-4 of the largest.
+and 1; the LM's logits 1e-4 of the largest; the SSD kernels 1e-5
+(forward) and 1e-4 (backward, whose dla is a reverse cumsum of terms
+that cancel) of the larger of each output's largest magnitude and 1.
 """
 import numpy as np
 import pytest
@@ -36,6 +41,9 @@ from repro_torch.configs import base as lm_base
 from repro_torch.kernels.flash_attention import decode as tdecode
 from repro_torch.kernels.flash_attention import flash_attention as tchunk
 from repro_torch.kernels.flash_attention import ref as attn_ref
+from repro_torch.kernels.ssm_scan import ops as ssm_ops
+from repro_torch.kernels.ssm_scan import ref as ssm_ref
+from repro_torch.kernels.ssm_scan import ssm_scan as tssm
 from repro_torch.models import lm as tlm
 from repro_torch.serve.engine import Request, ServeEngine
 from repro_torch.optim import optimizers as opt_lib
@@ -588,6 +596,146 @@ def test_lm_train_step_on_card_matches_cpu_and_counts_launches(cuda):
         upd_g, upd_c = new_g.cpu() - p0, new_c - p0
         assert bool(((upd_g - upd_c).abs() <= 1e-3 * upd_c.abs().max()
                      + allow).all())
+    for a, b in zip(precision.tree_leaves([gp, gs]),
+                    precision.tree_leaves([again[0], again[1]])):
+        assert torch.equal(a, b)
+
+
+# ---------------------------------------------------------------------------
+# the SSD scan kernels
+# ---------------------------------------------------------------------------
+
+SSD_GEOMS = [
+    # Bt, S, H, P, N, chunk
+    (8, 256, 64, 64, 64, 128),     # the zamba2-1.2b training shapes
+    (2, 200, 4, 64, 64, 128),      # ragged S
+    (1, 1024, 3, 64, 64, 128),     # many chunks
+    (2, 64, 16, 32, 32, 128),      # reduced zamba: chunk clamped to S
+    (1, 37, 3, 8, 4, 16),          # odd S, odd H, small P and N
+    (2, 100, 5, 16, 8, 32),        # ragged, P != N
+]
+TOL_SSD = {"fwd": 1e-5, "bwd": 1e-4}
+
+
+def _ssd_inputs(cuda, Bt, S, H, P, N, seed=3):
+    """N(0, 1) x, B, C and dy; dt = softplus(N(-2, 1)) and A from -1 to -16
+    (the model's A_log init): the log-decay reaches hundreds within a
+    chunk, so exp(F_t - F_s) above the diagonal would overflow."""
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    x, dy = (torch.randn((Bt, S, H, P), generator=g, device=cuda)
+             for _ in range(2))
+    B, C = (torch.randn((Bt, S, N), generator=g, device=cuda)
+            for _ in range(2))
+    dt = torch.nn.functional.softplus(
+        torch.randn((Bt, S, H), generator=g, device=cuda) - 2.0)
+    A = -torch.linspace(1.0, 16.0, H, device=cuda)
+    return x, B, C, dt, A, dy
+
+
+@pytest.mark.parametrize("Bt,S,H,P,N,chunk", SSD_GEOMS)
+def test_ssd_kernels_match_plain(cuda, Bt, S, H, P, N, chunk):
+    """Forward (y, final and entry states) and backward (dx, dB, dC, ddt,
+    dA) kernels against their plain versions on the card (TOL_SSD), one
+    launch each, all finite, and a second run of each bit for bit."""
+    x, B, C, dt, A, dy = _ssd_inputs(cuda, Bt, S, H, P, N)
+    n0 = (tssm.FWD_LAUNCHES, tssm.BWD_LAUNCHES)
+    fwd = tssm.ssm_scan_fwd(x, B, C, dt, A, chunk=chunk,
+                            return_chunk_states=True)
+    bwd = tssm.ssm_scan_bwd(x, B, C, dt, A, fwd[2], dy, chunk=chunk)
+    torch.cuda.synchronize()
+    assert (tssm.FWD_LAUNCHES, tssm.BWD_LAUNCHES) == (n0[0] + 1, n0[1] + 1)
+    pf = ssm_ref.ssd_fwd_ref(x, B, C, dt, A, chunk=chunk)
+    pb = ssm_ref.ssd_bwd_ref(x, B, C, dt, A, pf[2], dy, chunk=chunk)
+    for kind, got, want in (("fwd", fwd, pf), ("bwd", bwd, pb)):
+        for a, b in zip(got, want):
+            assert a.shape == b.shape and a.dtype == torch.float32
+            assert bool(torch.isfinite(a).all())
+            _rel_close(a, b, TOL_SSD[kind])
+    fwd2 = tssm.ssm_scan_fwd(x, B, C, dt, A, chunk=chunk,
+                             return_chunk_states=True)
+    bwd2 = tssm.ssm_scan_bwd(x, B, C, dt, A, fwd[2], dy, chunk=chunk)
+    for a, b in zip(fwd + bwd, fwd2 + bwd2):
+        assert torch.equal(a, b)
+
+
+def test_ssd_op_gradients_on_card_match_the_sequential_scan(cuda):
+    """The autograd Function on the card against torch.autograd through the
+    sequential oracle, on a ragged two-chunk shape: y 1e-5, every
+    gradient 1e-4 of the larger of its largest and 1."""
+    x, B, C, dt, A, dy = _ssd_inputs(cuda, 2, 150, 4, 32, 16, seed=5)
+    leaves = [t.detach().requires_grad_() for t in (x, B, C, dt, A)]
+    y = ssm_ops.ssm_scan(*leaves, chunk=128)
+    got = torch.autograd.grad(y, leaves, dy)
+    ref_leaves = [t.detach().requires_grad_() for t in (x, B, C, dt, A)]
+    yr = ssm_ref.ssm_scan_seq_ref(*ref_leaves)[0]
+    want = torch.autograd.grad(yr, ref_leaves, dy)
+    _rel_close(y, yr, 1e-5)
+    for a, b in zip(got, want):
+        _rel_close(a, b, 1e-4)
+
+
+def test_ssd_kernels_reject_what_they_do_not_take(cuda):
+    x, B, C, dt, A, dy = _ssd_inputs(cuda, 1, 64, 2, 16, 8)
+    si = torch.zeros((1, 2, 1, 16, 8), device=cuda)
+    n0 = (tssm.FWD_LAUNCHES, tssm.BWD_LAUNCHES)
+    with pytest.raises(ValueError, match="x must be f32"):
+        tssm.ssm_scan_fwd(x.bfloat16(), B, C, dt, A, chunk=128)
+    with pytest.raises(ValueError, match="A must be f32"):
+        tssm.ssm_scan_fwd(x, B, C, dt, A.cpu(), chunk=128)
+    with pytest.raises(ValueError, match="chunk <= 128"):
+        z = torch.zeros((1, 256, 2, 16), device=cuda)
+        tssm.ssm_scan_fwd(z, B.new_zeros((1, 256, 8)),
+                          B.new_zeros((1, 256, 8)), dt.new_zeros((1, 256, 2)),
+                          A, chunk=256)
+    with pytest.raises(ValueError, match="P <= 64"):
+        tssm.ssm_scan_fwd(torch.zeros((1, 64, 2, 80), device=cuda), B, C, dt,
+                          A, chunk=128)
+    with pytest.raises(ValueError, match="chunk_states"):
+        tssm.ssm_scan_bwd(x, B, C, dt, A, si[..., :4], dy, chunk=128)
+    with pytest.raises(ValueError, match="dy must be f32"):
+        tssm.ssm_scan_bwd(x, B, C, dt, A, si, dy.cpu(), chunk=128)
+    assert (tssm.FWD_LAUNCHES, tssm.BWD_LAUNCHES) == n0
+
+
+def test_zamba_train_step_on_card_matches_cpu_and_counts_launches(cuda):
+    """One f32 AdamW step of the reduced zamba2-1.2b (remat on) on the card
+    (kernels) against the CPU (plain versions) from the same parameters
+    and tokens: loss and grad norm within 1e-5 relative, each AdamW
+    moment leaf within 1e-4 of its largest (the unread shared attn/wo
+    has zero moments on both sides); 2L SSD forward (remat) and L
+    backward launches, 2 and 1 of each attention kernel per shared
+    application; a second step from the same state bit for bit."""
+    from repro_torch.models import api, zamba
+    from repro_torch.train import steps as steps_lib
+    cfg = lm_base.reduced_config("zamba2-1.2b")
+    params = zamba.init(torch.Generator().manual_seed(0), cfg, "cpu")
+    tokens = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab, (2, 64)).astype(np.int32))
+    opt = opt_lib.adamw(opt_lib.warmup_cosine(1e-3, 1, 4))
+    step = steps_lib.make_train_step(api.get_model(cfg), cfg, opt,
+                                     precision.get_policy("f32"))
+    out = {}
+    for dev in ("cpu", "cuda"):
+        p = precision.tree_map(lambda t: t.to(dev), params)
+        n0 = (tssm.FWD_LAUNCHES, tssm.BWD_LAUNCHES, tchunk.FWD_LAUNCHES,
+              tchunk.DQ_LAUNCHES, tchunk.DKV_LAUNCHES)
+        out[dev] = step(p, opt.init(p), {"tokens": tokens.to(dev)})
+        if dev == "cuda":
+            torch.cuda.synchronize()
+            L = cfg.n_layers
+            n_shared = len(range(0, L, cfg.shared_attn_every))
+            n = (tssm.FWD_LAUNCHES, tssm.BWD_LAUNCHES, tchunk.FWD_LAUNCHES,
+                 tchunk.DQ_LAUNCHES, tchunk.DKV_LAUNCHES)
+            assert tuple(a - b for a, b in zip(n, n0)) == (
+                2 * L, L, 2 * n_shared, n_shared, n_shared)
+            again = step(p, opt.init(p), {"tokens": tokens.to(dev)})
+    (cp, cs, cm), (gp, gs, gm) = out["cpu"], out["cuda"]
+    for k in ("loss", "grad_norm"):
+        assert abs(float(gm[k]) - float(cm[k])) <= 1e-5 * abs(float(cm[k]))
+    for a, b in zip(precision.tree_leaves([gs["m"], gs["v"]]),
+                    precision.tree_leaves([cs["m"], cs["v"]])):
+        assert float((a.cpu() - b).abs().max()) <= 1e-4 * float(
+            b.abs().max())
     for a, b in zip(precision.tree_leaves([gp, gs]),
                     precision.tree_leaves([again[0], again[1]])):
         assert torch.equal(a, b)

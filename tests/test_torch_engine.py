@@ -272,7 +272,7 @@ def test_fit_logs_windows_and_stops_with_the_stream():
 
 
 def test_launcher_defaults_and_refusals():
-    for arch in ("zamba2-1.2b", "phi4-mini-3.8b"):
+    for arch in ("olmoe-1b-7b", "phi4-mini-3.8b"):
         with pytest.raises(NotImplementedError, match="ROADMAP.md, Queue 1"):
             ttrain.main(["--arch", arch, "--device", "cpu"])
     for loop in ("custom", "naive"):

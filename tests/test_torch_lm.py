@@ -185,9 +185,12 @@ def test_configs_and_model_api():
         tbase.get_config("no-such-arch")
     model = tapi.get_model(full)
     assert model.prefill_chunk is tlm.prefill_chunk
-    for family in ("moe", "ssm", "hybrid", "vlm", "audio"):
+    for family in ("moe", "ssm", "vlm", "audio"):
         with pytest.raises(NotImplementedError, match="not ported"):
             tapi.get_model(dataclasses.replace(red, family=family))
+    # the hybrid family (Zamba2) trains through models/zamba.py
+    hybrid = tapi.get_model(tbase.reduced_config("zamba2-1.2b"))
+    assert hybrid.loss_fn.__module__ == "repro_torch.models.zamba"
     # what the port's dense LM does not run raises instead of being ignored
     for change in (dict(sliding_window=256), dict(ffn_type="gelu"),
                    dict(rope_theta=0.0), dict(tie_embeddings=False)):

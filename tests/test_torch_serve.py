@@ -244,6 +244,9 @@ print(json.dumps({"modules": names, "bad": bad}))
                 "kernels.flash_attention.flash_attention", "models.lm",
                 "models.api", "train.steps", "serve.engine",
                 "kernels.flash_attention.ops", "data.tokens",
-                "train.checkpoint", "convert"):
+                "train.checkpoint", "convert", "configs.zamba2_1_2b",
+                "substrate.ssm", "kernels.ssm_scan.ref",
+                "kernels.ssm_scan.ssm_scan", "kernels.ssm_scan.ops",
+                "models.zamba"):
         assert f"repro_torch.{mod}" in res["modules"]
     assert res["bad"] == []
