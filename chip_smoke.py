@@ -5,7 +5,7 @@ Run from the root of a checkout:  python3 chip_smoke.py
 1. prints the card's name and power limit (nvidia-smi);
 2. builds the port's CUDA kernels (``conv3d_fwd``, ``conv3d_dw``,
    ``flash_chunk``, ``flash_decode``, ``flash_fwd``, ``flash_bwd``,
-   ``ssd_fwd``, ``ssd_bwd``) from
+   ``ssd_fwd``, ``ssd_bwd``, ``gemm``: nine sources) from
    ``src/repro_torch/kernels/*/csrc`` into ``build/kernels/``, one nvcc
    per source, all at once, and prints the build time;
 3. forward: holds the conv3d kernel, through the public entry points
@@ -13,6 +13,15 @@ Run from the root of a checkout:  python3 chip_smoke.py
    versions at the eight conv geometries of the full ``calo3dgan.config()``
    at batch 128 (four generator, four discriminator), in f32 and bf16 with
    TF32 off, and times kernel, plain version and one cuDNN call;
+   gemm: the standalone tiled GEMM through the public ``gemm`` against
+   ``ref.gemm_ref`` in f32, bf16 and bf16 in with f32 out, at the JAX
+   package's test shapes, shapes one off its tiles, K = 1, rows that break
+   16-byte alignment and the full-width GEMMs of the models the port runs
+   (qwen2-1.5b's FFN in and out, zamba2-1.2b's in_proj, the 3DGAN's fc):
+   counts set to 0 just before the calls, read just after (one launch a
+   call), a second call bit for bit, and at full width kernel, plain and
+   the library call (``torch.matmul``; ``torch.mm(out_dtype=)`` for bf16
+   in, f32 out) timed beside the bound;
 4. gradients: the same eight layers through ``conv3d_*_dx`` (the forward
    kernel on the cotangent) and ``conv3d_*_dw`` (the dw kernel) against
    ``ref.conv3d_*_dx`` / ``ref.conv3d_*_dw``, timed beside the library's
@@ -51,8 +60,9 @@ Run from the root of a checkout:  python3 chip_smoke.py
    their plain versions at the training shapes (batch 8 x seq 256,
    qwen2-1.5b heads, causal) in f32 and bf16 on N(0, 1) inputs (O, lse,
    dq, dk, dv; a second run of each bit for bit), timed beside their
-   bounds and ``scaled_dot_product_attention`` (forward; forward +
-   backward); one training step card vs CPU at full width with the depth
+   bounds and ``scaled_dot_product_attention`` (forward; the backward
+   alone of a saved forward, and forward + backward); one training step
+   card vs CPU at full width with the depth
    cut to 2 layers (loss, grad norm, every gradient and AdamW update
    leaf); then the LM training main path: full-width qwen2-1.5b from seed
    0 through ``Engine.fit`` on ``lm_task`` (f32, AdamW on warmup-cosine,
@@ -75,7 +85,7 @@ Run from the root of a checkout:  python3 chip_smoke.py
    step with its device time split among GEMMs, SSD kernels, attention
    kernels and elementwise work;
 10. writes every number to ``results/chip_smoke.json``, prints the
-   kernels' JSON line, the card line again, and as its last line
+   kernels' JSON line (all ten), the card line again, and as its last line
    ``{"ok": true, "device": {...}}``.
 
 Any failed check raises, so the script exits non-zero and prints no ok
@@ -167,6 +177,22 @@ TOL_SSD = {"ssd_fwd": 1e-5, "ssd_bwd": 1e-4}
 # the training kernels whose launches the LM training paths count
 TRAIN_KERNELS = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv", "ssd_fwd",
                  "ssd_bwd")
+# the standalone GEMM vs plain: by ``ref.gemm_err`` (an f32 output to 1e-5
+# of the case's largest |output|, a bf16 output to one bf16 spacing plus
+# 1e-5 of the largest), and bit for bit the kernel's own f32 output rounded
+# to bf16.  The shapes besides the models' full-width ones: the JAX
+# package's test shapes, the kernel's 128 x 128 tile and its K steps (16
+# f32, 32 bf16) straddled by one, K = 1, and rows that break 16-byte
+# alignment; ``tests/test_torch_cuda.py`` runs the same
+GEMM_CHECK_SHAPES = (
+    (128, 128, 128), (100, 70, 50), (300, 200, 150), (1, 1, 1),
+    (128, 256, 64),                                     # the JAX tests
+    (127, 128, 128), (129, 128, 128), (128, 127, 128),
+    (128, 129, 128), (128, 128, 127), (128, 128, 129),
+    (127, 127, 127), (129, 129, 129),                   # the tile +- 1
+    (130, 15, 131), (100, 17, 50), (64, 31, 200), (64, 33, 200),
+    (64, 1, 96), (5, 1, 7),                             # K steps, K = 1
+    (65, 66, 67), (96, 36, 132), (257, 129, 130))       # unaligned
 
 
 def check(cond, msg):
@@ -405,6 +431,175 @@ def kernel_phase(cfg):
                           f"the kernel (max abs {float(lib_diff.max())})")
             del x, yk, yp, yl
     return rows
+
+
+# ---------------------------------------------------------------------------
+# the standalone GEMM
+# ---------------------------------------------------------------------------
+
+
+def gemm_shapes(gan_cfg, lm_cfg, z_cfg):
+    """[(label, M, K, N, full_width)] the gemm phase holds the kernel at:
+    GEMM_CHECK_SHAPES and the full-width GEMMs of the models the port runs:
+    qwen2-1.5b's FFN in and out at batch 8 x 256, zamba2-1.2b's Mamba2
+    in_proj at the same batch, the 3DGAN generator's fc at batch 128."""
+    from repro_torch.core.gan import _start_dims
+    rows = LMT_BATCH * LMT_SEQ
+    d, ff = lm_cfg.d_model, lm_cfg.d_ff
+    zs = z_cfg.ssm
+    di = zs.expand * z_cfg.d_model
+    in_proj = 2 * di + 2 * zs.state_dim + di // zs.head_dim
+    d0 = _start_dims(gan_cfg.image_shape, len(gan_cfg.gen_channels) - 1)
+    fc = d0[0] * d0[1] * d0[2] * gan_cfg.gen_channels[0]
+    out = [(f"{M}x{K}x{N}", M, K, N, False) for M, K, N in GEMM_CHECK_SHAPES]
+    out += [("qwen2_ffn_in", rows, d, ff, True),
+            ("qwen2_ffn_out", rows, ff, d, True),
+            ("zamba2_in_proj", rows, z_cfg.d_model, in_proj, True),
+            ("gan_fc", BATCH, gan_cfg.latent_dim + 2, fc, True)]
+    return out
+
+
+def library_gemm(x, w, out_dt):
+    """(call, label) of the one PyTorch call that computes what ``gemm``
+    computes on (x, w) with an ``out_dt`` output (a yardstick; the port
+    never calls it): ``torch.matmul`` where the output keeps the inputs'
+    dtype, ``torch.mm(..., out_dtype=)`` for bf16 in, f32 out.  (None, why)
+    where the installed torch has no such call."""
+    import torch
+    dname = "float32" if x.dtype == torch.float32 else "bfloat16"
+    if out_dt == x.dtype:
+        return (lambda: torch.matmul(x, w),
+                f"torch.matmul in {dname}, {dname} out (cuBLAS, TF32 off)")
+    try:
+        y = torch.mm(x[:1, :1], w[:1, :1], out_dtype=out_dt)
+    except (TypeError, RuntimeError, NotImplementedError) as e:
+        return None, f"none: torch.mm(out_dtype=) is not here ({e})"[:160]
+    if y.dtype != out_dt:
+        return None, f"none: torch.mm(out_dtype=) gave {y.dtype}"
+    return (lambda: torch.mm(x, w, out_dtype=out_dt),
+            f"torch.mm in {dname}, out_dtype float32 (cuBLAS)")
+
+
+def gemm_phase(shapes):
+    """The standalone GEMM through the public ``gemm`` against ``gemm_ref``
+    at every shape of ``shapes``, f32, bf16 and bf16 in with f32 out, on
+    N(0, 1) inputs (TF32 off).  First every case once (the entry point's
+    run: counts set to 0 just before, read just after, exactly one launch
+    a call), then each held to ``ref.gemm_err``, a second call bit for bit,
+    and at the full-width shapes kernel, plain and the library call of
+    ``library_gemm`` timed beside the bound.  Returns (rows, launches)."""
+    import torch
+    from repro_torch.kernels.conv3d import conv3d as conv_mod
+    from repro_torch.kernels.conv3d import gemm
+    from repro_torch.kernels.conv3d.ref import GEMM_TOL, gemm_err, gemm_ref
+    gen = torch.Generator(device="cuda").manual_seed(29)
+    kinds = (("float32", torch.float32, torch.float32),
+             ("bfloat16", torch.bfloat16, torch.bfloat16),
+             ("bfloat16->float32", torch.bfloat16, torch.float32))
+    inputs = {}
+    for label, M, K, N, full in shapes:
+        xf = torch.randn((M, K), generator=gen, device="cuda")
+        wf = torch.randn((K, N), generator=gen, device="cuda")
+        inputs[label] = {dt: (xf.to(dt), wf.to(dt))
+                         for dt in (torch.float32, torch.bfloat16)}
+    torch.cuda.synchronize()
+    outs = {}
+    conv_mod.GEMM_LAUNCHES = 0
+    for label, M, K, N, full in shapes:
+        for kind, dt, out_dt in kinds:
+            n0 = conv_mod.GEMM_LAUNCHES
+            outs[label, kind] = gemm(*inputs[label][dt], out_dtype=out_dt)
+            check(conv_mod.GEMM_LAUNCHES == n0 + 1,
+                  f"gemm {label} {kind}: {conv_mod.GEMM_LAUNCHES - n0} "
+                  f"launches for one call")
+    torch.cuda.synchronize()
+    launches = conv_mod.GEMM_LAUNCHES
+    check(launches == len(shapes) * len(kinds),
+          f"gemm: {launches} launches for {len(shapes) * len(kinds)} calls")
+    rows = []
+    for label, M, K, N, full in shapes:
+        for kind, dt, out_dt in kinds:
+            x, w = inputs[label][dt]
+            y = outs.pop((label, kind))
+            want = gemm_ref(x, w, out_dt)
+            again = gemm(x, w, out_dtype=out_dt)
+            torch.cuda.synchronize()
+            err, ok = gemm_err(y, want)
+            rounded = True
+            if out_dt == torch.bfloat16:   # the rounding, bit for bit
+                rounded = torch.equal(y, outs[label, "bfloat16->float32"].to(
+                    torch.bfloat16))
+            same = torch.equal(y, again)
+            row = {"shape": label, "M": M, "K": K, "N": N, "dtype": kind,
+                   "max_abs_err": float((y.float() - want.float()).abs().max()),
+                   "largest": float(want.float().abs().max()),
+                   ("max_err_of_largest" if out_dt == torch.float32
+                    else "max_err_of_allowance"): err,
+                   "repeat_identical": same}
+            if full:
+                dname = "float32" if dt == torch.float32 else "bfloat16"
+                nbytes = (M * K + K * N) * x.element_size() \
+                    + M * N * y.element_size()
+                bound, by = layer_bound(M * N * K, nbytes, dname)
+                lib, lib_label = library_gemm(x, w, out_dt)
+                row.update(
+                    ms=cuda_ms(lambda: gemm(x, w, out_dtype=out_dt)),
+                    plain_ms=cuda_ms(lambda: gemm_ref(x, w, out_dt)),
+                    library_ms=None if lib is None else cuda_ms(lib),
+                    library=lib_label,
+                    bound_ms=bound, bound_by=by, gflop=2 * M * N * K / 1e9,
+                    mbytes=nbytes / 1e6)
+                if lib is not None:     # recorded, not held: a yardstick
+                    row["library_err"] = gemm_err(lib(), want)[0]
+                lib_ms = ("none" if lib is None
+                          else f"{row['library_ms']:.4f}")
+                print(f"  {label:14s} ({M}, {K}) @ ({K}, {N}) {kind:17s} "
+                      f"err {err:.2e} kernel_ms={row['ms']:.4f} "
+                      f"plain_ms={row['plain_ms']:.4f} "
+                      f"library_ms={lib_ms} "
+                      f"bound_ms={bound:.4f} ({by})", flush=True)
+            rows.append(row)
+            check(ok and rounded,
+                  f"gemm {label} {kind}: kernel disagrees with plain "
+                  f"(error {err:.3e}; the bf16 output is the rounding "
+                  f"of the kernel's f32 output: {rounded})")
+            check(same, f"gemm {label} {kind}: a second call differs")
+            del y, want, again
+    worst = max(r.get("max_err_of_largest", 0.0) for r in rows)
+    spac = max(r.get("max_err_of_allowance", 0.0) for r in rows)
+    print(f"  {len(rows)} cases: f32 outputs within {worst:.2e} of their "
+          f"largest (tolerance {GEMM_TOL}), bf16 outputs within {spac:.2f} "
+          f"of one spacing + {GEMM_TOL} of the largest (tolerance 1) and "
+          f"bf16 in / bf16 out the rounding of the kernel's f32 output, bit "
+          f"for bit; every repeat bit-identical; {launches} launches for "
+          f"{launches} calls", flush=True)
+    # launches made to compare and time are not the entry point's run
+    conv_mod.GEMM_LAUNCHES = 0
+    return rows, launches
+
+
+def gemm_entry(rows, launches, model_launches):
+    """The kernels-line entry of the standalone GEMM: its f32 row at
+    qwen2-1.5b's FFN-in shape, every full-width row beside it, and the
+    worst errors over every case."""
+    r = next(r for r in rows if r["shape"] == "qwen2_ffn_in"
+             and r["dtype"] == "float32")
+    keys = ("shape", "M", "K", "N", "dtype", "ms", "plain_ms", "library_ms",
+            "library", "bound_ms", "bound_by")
+    return {"name": "gemm", "route": "cuda",
+            "source": "src/repro_torch/kernels/conv3d/csrc/gemm.cu",
+            "replaces": "src/repro/kernels/conv3d/conv3d.py:56",
+            "launches": launches, "launches_on_model_paths": model_launches,
+            "max_abs_err": r["max_abs_err"],
+            "max_err_of_largest": max(x.get("max_err_of_largest", 0.0)
+                                      for x in rows),
+            "max_err_of_bf16_allowance": max(
+                x.get("max_err_of_allowance", 0.0) for x in rows),
+            "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+            "bound_by": r["bound_by"], "library_ms": r["library_ms"],
+            "library": r["library"],
+            "by_shape": [{k: x[k] for k in keys} for x in rows if "ms" in x],
+            "timed": "one f32 call at (2048, 1536) @ (1536, 8960)"}
 
 
 # ---------------------------------------------------------------------------
@@ -1759,6 +1954,14 @@ def train_attention_phase(cfg):
                 *leaves, is_causal=True)
             torch.autograd.grad(out, leaves, dot)
 
+        # the backward alone (dq, dk, dv: what flash_bwd_dq and
+        # flash_bwd_dkv compute together) of one saved forward
+        saved = torch.nn.functional.scaled_dot_product_attention(
+            *leaves, is_causal=True)
+
+        def sdpa_bwd():
+            torch.autograd.grad(saved, leaves, dot, retain_graph=True)
+
         lib_err = float((sdpa().transpose(1, 2).float() - po.float()).abs()
                         .max()) / float(po.float().abs().max())
         times = {
@@ -1769,12 +1972,12 @@ def train_attention_phase(cfg):
             "flash_bwd_dq": (lambda: fa.flash_bwd_dq(q, k, v, do, lse, delta),
                              lambda: ref.flash_bwd_dq_ref(q, k, v, do, lse,
                                                           delta),
-                             sdpa_fwd_bwd, "SDPA forward + backward"),
+                             sdpa_bwd, "SDPA backward alone (dq, dk, dv)"),
             "flash_bwd_dkv": (lambda: fa.flash_bwd_dkv(q, k, v, do, lse,
                                                        delta),
                               lambda: ref.flash_bwd_dkv_ref(q, k, v, do, lse,
                                                             delta),
-                              sdpa_fwd_bwd, "SDPA forward + backward"),
+                              sdpa_bwd, "SDPA backward alone (dq, dk, dv)"),
         }
         bounds = train_attention_work(B, S, S, H, KH, D, dname)
         err_of = {"flash_fwd": max(errs["o"], lse_err),
@@ -1784,7 +1987,7 @@ def train_attention_phase(cfg):
                                    float((lse - plse).abs().max())),
                   "flash_bwd_dq": abs_errs["dq"],
                   "flash_bwd_dkv": max(abs_errs["dk"], abs_errs["dv"])}
-        lib_ms = {}
+        lib_ms = {sdpa_fwd_bwd: cuda_ms(sdpa_fwd_bwd)}
         for name, (kern, plain, lib, lib_what) in times.items():
             ms_k, ms_p = cuda_ms(kern), cuda_ms(plain)
             if lib not in lib_ms:
@@ -1795,13 +1998,18 @@ def train_attention_phase(cfg):
                          "max_abs_err": abs_of[name],
                          "max_err_of_largest": err_of[name], "ms": ms_k,
                          "plain_ms": ms_p, "library_ms": lib_ms[lib],
-                         "library": lib_what, "bound_ms": bound,
+                         "library": lib_what,
+                         "library_fwd_bwd_ms": lib_ms[sdpa_fwd_bwd],
+                         "bound_ms": bound,
                          "bound_by": by, "mbytes": nbytes / 1e6,
                          "gflop": flops / 1e9, "repeat_identical": same})
             print(f"  {name:13s} {dname:8s} err/largest {err_of[name]:.2e} "
                   f"(tolerance {TOL_TRAIN_ATTN[dname]}); kernel_ms={ms_k:.4f} "
                   f"plain_ms={ms_p:.4f} library_ms={lib_ms[lib]:.4f} "
                   f"({lib_what}) bound_ms={bound:.4f} ({by})", flush=True)
+        print(f"  {dname}: SDPA forward + backward "
+              f"{lib_ms[sdpa_fwd_bwd]:.4f} ms, backward alone "
+              f"{lib_ms[sdpa_bwd]:.4f} ms", flush=True)
         print(f"  {dname}: O {errs['o']:.2e}, lse {lse_err:.2e}, dq "
               f"{errs['dq']:.2e}, dk {errs['dk']:.2e}, dv {errs['dv']:.2e} of "
               f"their largest; a second run bit-identical: {same}; SDPA vs "
@@ -1814,6 +2022,7 @@ def train_attention_phase(cfg):
         check(lib_err <= 10 * tol, f"SDPA {dname} is not the same function "
                                    f"({lib_err})")
         del q, k, v, do, o, lse, dq, dk, dv, po, pdq, pdk, pdv, again, leaves
+        del saved
     # launches made to compare and time are not main-path launches
     fa.FWD_LAUNCHES, fa.DQ_LAUNCHES, fa.DKV_LAUNCHES = n0
     return rows
@@ -2250,6 +2459,7 @@ def train_attention_entry(rows, name, source, replaces, launches, steps):
             "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"],
             "library": r["library"],
+            "library_fwd_bwd_ms": r["library_fwd_bwd_ms"],
             "timed": "one f32 call at the LM training path's shapes"}
 
 
@@ -2302,6 +2512,7 @@ def main() -> int:
     from repro_torch.configs import calo3dgan
     from repro_torch.core import adversarial
     from repro_torch.kernels import build
+    from repro_torch.kernels.conv3d import conv3d as conv_mod
 
     card = card_line()
     print(f"card: {card}", flush=True)
@@ -2330,6 +2541,12 @@ def main() -> int:
 
     print("forward kernel vs plain (TF32 off):", flush=True)
     rows = timed("forward", kernel_phase, cfg)
+    print("standalone gemm vs plain, with cuBLAS as the yardstick "
+          "(N(0, 1) inputs, TF32 off):", flush=True)
+    gemm_rows, gemm_launches = timed(
+        "gemm", gemm_phase,
+        gemm_shapes(cfg, lm_base.get_config("qwen2-1.5b"),
+                    lm_base.get_config("zamba2-1.2b")))
     print("dx (forward kernel) and dw (dw kernel) vs plain (TF32 off):",
           flush=True)
     grad_rows = timed("gradients", grad_phase, cfg)
@@ -2389,6 +2606,10 @@ def main() -> int:
           flush=True)
 
     counts = adversarial.conv_launches_by_layer(cfg)
+    # set to 0 after the gemm phase: no model path calls gemm()
+    check(conv_mod.GEMM_LAUNCHES == 0,
+          f"gemm: {conv_mod.GEMM_LAUNCHES} launches on the model paths")
+    gemm = gemm_entry(gemm_rows, gemm_launches, conv_mod.GEMM_LAUNCHES)
     fwd = kernel_entry(rows, e2e["launches"] + train["fwd_launches"])
     serve = {k: fwd[k] for k in ("ms", "plain_ms", "library_ms",
                                  "bound_ms", "bound_by")}
@@ -2453,10 +2674,11 @@ def main() -> int:
                    "train_attention": train_attn_rows,
                    "lm_train_check": lm_train_check, "lm_train": lm_train,
                    "ssd": ssd_rows, "zamba_train_check": z_train_check,
-                   "zamba_train": z_train, "phase_s": phases}, f, indent=1)
+                   "zamba_train": z_train, "gemm": gemm_rows,
+                   "phase_s": phases}, f, indent=1)
     print(card, flush=True)
     print(json.dumps({"kernels": [fwd, dw, chunk, decode, *train_kernels,
-                                  *ssd_kernels]}), flush=True)
+                                  *ssd_kernels, gemm]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -13,6 +13,8 @@ On a CUDA tensor :func:`conv_core` launches ``csrc/conv3d_fwd.cu`` and adds
 one to :data:`LAUNCHES`, and :func:`conv_dw_core` launches
 ``csrc/conv3d_dw.cu`` and adds one to :data:`DW_LAUNCHES`; on a CPU tensor
 each runs its plain version (`ref.conv_core_ref`, `ref.conv_dw_core_ref`).
+The standalone :func:`gemm` launches ``csrc/gemm.cu`` on a CUDA tensor and
+adds one to :data:`GEMM_LAUNCHES`; on a CPU tensor it runs `ref.gemm_ref`.
 There is no fallback from a kernel to its plain version.
 """
 from __future__ import annotations
@@ -21,10 +23,11 @@ import ctypes
 
 import torch
 
-# kernel launches made by conv_core / conv_dw_core (one per launch,
+# kernel launches made by conv_core / conv_dw_core / gemm (one per launch,
 # nowhere else)
 LAUNCHES = 0
 DW_LAUNCHES = 0
+GEMM_LAUNCHES = 0
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 _ACTS = {"none": 0, "leaky_relu": 1, "softplus": 2}
@@ -37,6 +40,56 @@ _DW_ARGTYPES = ([ctypes.c_int] * 2 + [ctypes.c_void_p] * 4
 DW_TARGET_BLOCKS = 512
 DW_MIN_SPLIT = 256
 DW_TILE = 256                # weights per block (csrc/conv3d_dw.cu)
+_GEMM_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_GEMM_ARGTYPES = ([ctypes.c_int] * 2 + [ctypes.c_void_p] * 3
+                  + [ctypes.c_int64] * 3 + [ctypes.c_void_p])
+
+
+# ---------------------------------------------------------------------------
+# standalone GEMM
+# ---------------------------------------------------------------------------
+
+
+def gemm(x, w, *, out_dtype=None):
+    """(M, K) @ (K, N) summed in f32 and rounded once to ``out_dtype``
+    (default ``x.dtype``).  ``x`` and ``w`` are both f32 or both bf16 on
+    one device; ``out_dtype`` is f32 or bf16.  A non-contiguous operand is
+    made contiguous first."""
+    global GEMM_LAUNCHES
+    out_dtype = out_dtype or x.dtype
+    if x.dim() != 2 or w.dim() != 2 or x.shape[1] != w.shape[0]:
+        raise ValueError(f"gemm takes (M, K) @ (K, N), got {tuple(x.shape)} "
+                         f"@ {tuple(w.shape)}")
+    if x.dtype not in _GEMM_DTYPES or w.dtype != x.dtype \
+            or out_dtype not in _GEMM_DTYPES:
+        raise TypeError(f"gemm takes two f32 or two bf16 operands and an f32 "
+                        f"or bf16 output, got {x.dtype} @ {w.dtype} -> "
+                        f"{out_dtype}")
+    if w.device != x.device:
+        raise ValueError(f"w is on {w.device}, x on {x.device}")
+    M, K = x.shape
+    N = w.shape[1]
+    if min(M, K, N) <= 0:
+        raise ValueError(f"empty gemm: M {M}, K {K}, N {N}")
+    if x.device.type == "cpu":
+        from repro_torch.kernels.conv3d.ref import gemm_ref
+        return gemm_ref(x, w, out_dtype)
+    if x.device.type != "cuda":
+        raise ValueError(f"gemm runs on cuda (kernel) or cpu (plain "
+                         f"version), not {x.device}")
+    from repro_torch.kernels import build
+    x, w = x.contiguous(), w.contiguous()
+    y = torch.empty((M, N), dtype=out_dtype, device=x.device)
+    fn = build.load("gemm").gemm
+    fn.argtypes, fn.restype = _GEMM_ARGTYPES, ctypes.c_int
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        rc = fn(_GEMM_DTYPES[x.dtype], _GEMM_DTYPES[out_dtype], x.data_ptr(),
+                w.data_ptr(), y.data_ptr(), M, K, N, stream)
+    if rc != 0:
+        raise RuntimeError(f"gemm launch failed: cudaError {rc}")
+    GEMM_LAUNCHES += 1
+    return y
 
 
 # ---------------------------------------------------------------------------

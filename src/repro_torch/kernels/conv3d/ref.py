@@ -10,8 +10,11 @@ same way but feeds the weights and bias in f32; on the TPU they are
 rounded to the compute dtype first, as here.)  :func:`conv_dw_core_ref`
 computes what ``csrc/conv3d_dw.cu`` computes: for each tap, the strided
 slice of the same dilated, padded input contracted with the cotangent
-over every position, in f32.  The CPU path and the tests use them; on the
-card they are what the kernels are held against.
+over every position, in f32.  :func:`gemm_ref` computes what
+``csrc/gemm.cu`` computes: the product of the operands in f32, rounded
+once to the output dtype; :func:`gemm_err` is the one rule that holds a
+GEMM's output against another.  The CPU path and the tests use them; on
+the card they are what the kernels are held against.
 """
 from __future__ import annotations
 
@@ -101,6 +104,42 @@ def conv_dw_core_ref(x, g, kdims, *, stride: int, pads, in_dilation: int = 1):
                 taps.append(patch.permute(1, 0, 2, 3, 4).reshape(
                     xp.shape[1], -1) @ g2)                # (Ci, Co)
     return torch.stack(taps).reshape(*kdims, xp.shape[1], Co)
+
+
+def gemm_ref(x, w, out_dtype=None):
+    """Plain version of `conv3d.gemm`: (M, K) @ (K, N) in f32, cast to
+    ``out_dtype`` (default ``x.dtype``)."""
+    return torch.matmul(x.float(), w.float()).to(out_dtype or x.dtype)
+
+
+# a GEMM's f32 output is held to GEMM_TOL of the case's largest |output|
+# (two f32 sums in another order, K up to 8960); a bf16 output to one bf16
+# spacing at it plus GEMM_TOL of the largest (the two f32 sums differ by up
+# to the latter and each rounds to bf16 once: where a sum cancels to near
+# zero the spacing is finer than that difference)
+GEMM_TOL = 1e-5
+
+
+def bf16_spacing(v):
+    """The bf16 spacing at each |v|: 2^(e - 8) for |v| in [2^(e-1), 2^e)."""
+    _, e = torch.frexp(v.abs().float())
+    return torch.ldexp(torch.ones_like(v, dtype=torch.float32), e - 8)
+
+
+def gemm_err(got, want):
+    """(error, within tolerance) of a GEMM output ``got`` against ``want``:
+    for an f32 ``want`` the largest difference over the largest |want|,
+    within GEMM_TOL; for a bf16 one the largest difference in units of its
+    allowance, one bf16 spacing plus GEMM_TOL of the largest, within 1."""
+    g, w = got.float(), want.float()
+    diff = (g - w).abs()
+    largest = float(w.abs().max())
+    if want.dtype == torch.float32:
+        err = float(diff.max()) / max(largest, 1e-30)
+        return err, err <= GEMM_TOL
+    allow = bf16_spacing(torch.maximum(g.abs(), w.abs())) + GEMM_TOL * largest
+    err = float((diff / allow).max())
+    return err, err <= 1.0
 
 
 def conv3d_dx(g, w, stride: int, in_spatial):

@@ -10,7 +10,10 @@ key, bit-for-bit repeats and input checks, and a reduced LM training
 step on the card against the CPU; the SSD scan's forward and backward
 kernels over chunk-multiple, ragged, many-chunk and odd shapes, bit for
 bit on a repeat, their input checks, and a reduced Zamba2 training step
-on the card against the CPU.  Every test
+on the card against the CPU; the standalone tiled GEMM over shapes that
+straddle its tiles and rows that break 16-byte alignment, bit for bit on
+a repeat, one launch a call, and no allocation beside its output.  Every
+test
 needs a card and skips elsewhere; this file imports no JAX, so on the
 machine with the card it runs without the JAX package:
 
@@ -25,8 +28,14 @@ rounding of the same f32 result); the training attention kernels 1e-5
 (f32) and 1e-2 (bf16) of the larger of each output's largest magnitude
 and 1; the LM's logits 1e-4 of the largest; the SSD kernels 1e-5
 (forward) and 1e-4 (backward, whose dla is a reverse cumsum of terms
-that cancel) of the larger of each output's largest magnitude and 1.
+that cancel) of the larger of each output's largest magnitude and 1; the
+GEMM's f32 output 1e-5 of its largest |output|, a bf16 output one bf16
+spacing plus 1e-5 of the largest (``ref.gemm_err``), and bit for bit its
+own f32 output rounded to bf16.
 """
+import importlib.util
+import os
+
 import numpy as np
 import pytest
 import torch
@@ -36,7 +45,8 @@ from repro_torch.core import adversarial, gan
 from repro_torch.data.calo import CaloSimulator, CaloSpec
 from repro_torch.kernels.conv3d import conv3d as tconv
 from repro_torch.kernels.conv3d import ops
-from repro_torch.kernels.conv3d.ref import conv_core_ref, conv_dw_core_ref
+from repro_torch.kernels.conv3d.ref import (conv_core_ref, conv_dw_core_ref,
+                                            gemm_err, gemm_ref)
 from repro_torch.configs import base as lm_base
 from repro_torch.kernels.flash_attention import decode as tdecode
 from repro_torch.kernels.flash_attention import flash_attention as tchunk
@@ -739,3 +749,92 @@ def test_zamba_train_step_on_card_matches_cpu_and_counts_launches(cuda):
     for a, b in zip(precision.tree_leaves([gp, gs]),
                     precision.tree_leaves([again[0], again[1]])):
         assert torch.equal(a, b)
+
+
+# ---------------------------------------------------------------------------
+# the standalone GEMM
+# ---------------------------------------------------------------------------
+
+def _smoke_gemm_shapes():
+    """The chip smoke's gemm shapes that are not full width: the JAX
+    tests', the kernel's 128 x 128 tile and K steps (16 f32, 32 bf16) +- 1,
+    K = 1, and K, N not multiples of 4 or 8."""
+    path = os.path.join(os.path.dirname(__file__), os.pardir, "chip_smoke.py")
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return list(mod.GEMM_CHECK_SHAPES)
+
+
+GEMM_DTYPES = [(torch.float32, torch.float32), (torch.bfloat16,
+                                                torch.bfloat16),
+               (torch.bfloat16, torch.float32), (torch.float32,
+                                                 torch.bfloat16)]
+
+
+def _gemm_close(got, want):
+    err, ok = gemm_err(got, want)
+    assert ok, err
+
+
+@pytest.mark.parametrize("dtype,out_dtype", GEMM_DTYPES)
+@pytest.mark.parametrize("M,K,N", _smoke_gemm_shapes())
+def test_gemm_kernel_matches_plain(cuda, M, K, N, dtype, out_dtype):
+    g = torch.Generator(device=cuda).manual_seed(M + 3 * K + 7 * N)
+    x = torch.randn((M, K), generator=g, device=cuda).to(dtype)
+    w = torch.randn((K, N), generator=g, device=cuda).to(dtype)
+    before = tconv.GEMM_LAUNCHES
+    got = tconv.gemm(x, w, out_dtype=out_dtype)
+    assert tconv.GEMM_LAUNCHES == before + 1
+    want = gemm_ref(x, w, out_dtype)
+    torch.cuda.synchronize()
+    assert got.dtype == out_dtype and got.shape == (M, N)
+    _gemm_close(got, want)
+    if out_dtype == torch.bfloat16:   # one rounding of the same f32 sum
+        f32 = tconv.gemm(x, w, out_dtype=torch.float32)
+        assert torch.equal(got, f32.to(torch.bfloat16))
+
+
+def test_gemm_kernel_is_deterministic_and_takes_strided_operands(cuda):
+    """A fixed K order: two launches give the same bits; a transposed view
+    is made contiguous and gives the bits of its contiguous copy."""
+    g = torch.Generator(device=cuda).manual_seed(11)
+    for dtype in (torch.float32, torch.bfloat16):
+        x = torch.randn((300, 1000), generator=g, device=cuda).to(dtype)
+        w = torch.randn((1000, 260), generator=g, device=cuda).to(dtype)
+        a = tconv.gemm(x, w)
+        assert torch.equal(a, tconv.gemm(x, w))
+        xt = x.t().contiguous().t()
+        assert not xt.is_contiguous()
+        assert torch.equal(a, tconv.gemm(xt, w))
+
+
+def test_gemm_allocates_only_its_output(cuda):
+    """The port's counterpart of the JAX package's no-op-pad test: with
+    contiguous operands the peak device memory of a call grows by the
+    output's (allocator-rounded) bytes and nothing more, at a
+    tile-multiple and at a ragged shape."""
+    for M, K, N in ((128, 128, 128), (100, 70, 50)):
+        x = torch.randn((M, K), device=cuda)
+        w = torch.randn((K, N), device=cuda)
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        y = tconv.gemm(x, w)
+        torch.cuda.synchronize()
+        out = -(-y.numel() * y.element_size() // 512) * 512
+        assert torch.cuda.memory_allocated() - base == out
+        assert torch.cuda.max_memory_allocated() - base == out
+        del y
+
+
+def test_gemm_kernel_rejects_what_it_does_not_take(cuda):
+    x = torch.randn((4, 3), device=cuda)
+    before = tconv.GEMM_LAUNCHES
+    with pytest.raises(ValueError, match="gemm takes"):
+        tconv.gemm(x, torch.randn((4, 5), device=cuda))
+    with pytest.raises(TypeError, match="two f32 or two bf16"):
+        tconv.gemm(x.half(), torch.randn((3, 5), device=cuda).half())
+    with pytest.raises(ValueError, match="w is on"):
+        tconv.gemm(x, torch.randn((3, 5)))
+    assert tconv.GEMM_LAUNCHES == before
